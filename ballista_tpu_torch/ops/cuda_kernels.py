@@ -14,6 +14,10 @@ never hidden behind the plain version.
 | wrapper              | replaces (JAX package)                           |
 |----------------------|--------------------------------------------------|
 | sorted_grouped_sum   | ops/pallas_kernels.py::sorted_grouped_sum        |
+| grouped_aggregate    | ops/pallas_kernels.py::grouped_aggregate         |
+
+``grouped_aggregate_arrays`` keeps the JAX entry's contract for numpy
+arrays (``None`` above 128 groups); no stage route calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import subprocess
 import threading
 from typing import Dict, List, Optional
 
+import numpy as np
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -36,7 +42,7 @@ NVCC_FLAGS = [
 
 # launches per kernel: each wrapper adds one where it launches its kernel,
 # and nowhere else (the plain CPU version is not a launch)
-_launches: Dict[str, int] = {"sorted_grouped_sum": 0}
+_launches: Dict[str, int] = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
 
 _build_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
@@ -136,6 +142,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fn = lib.bt_sorted_grouped_sum_f32
         fn.argtypes = [vp, vp, vp, ll, i, ll, vp]
         fn.restype = i
+    elif name == "grouped_aggregate":
+        fn = lib.bt_grouped_aggregate_f32
+        fn.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+        fn.restype = i
 
 
 def _check_launch(name: str, rc: int) -> None:
@@ -200,3 +210,130 @@ def sorted_grouped_sum(codes, values, num_groups: int):
     _check_launch("sorted_grouped_sum", rc)
     _launches["sorted_grouped_sum"] += 1
     return out
+
+
+# -- grouped_aggregate ---------------------------------------------------------
+# the reference's group limit (its entry returns None above it)
+GROUPED_AGGREGATE_MAX_GROUPS = 128
+# the plain version's one-hot block, the reference's BLOCK_ROWS
+_PLAIN_BLOCK = 1024
+# blocks per batched one-hot product in the plain version (bounds its
+# [blocks, 1024, G] one-hot temporary)
+_PLAIN_BLOCKS_PER_STEP = 64
+# one block's shared memory on sm_90: the kernel's [G, A] tile must fit
+_MAX_TILE_BYTES = 232448
+
+
+def grouped_aggregate_plain(codes, values, mask, num_groups: int):
+    """Plain PyTorch version, the reference's arithmetic: rows that are
+    masked out are zeroed, then every block of 1024 rows adds
+    onehot(codes)^T @ values into out (rows whose code lies outside
+    [0, num_groups) match no column of the one-hot). A NaN in a row that is
+    not masked out still spreads to every group of its column here (0 * NaN
+    in the product), as in the reference; the kernel keeps it in its group."""
+    import torch
+
+    n, A = values.shape
+    dev = values.device
+    out = torch.zeros(num_groups, A, dtype=torch.float32, device=dev)
+    if n == 0 or num_groups == 0:
+        return out
+    iota = torch.arange(num_groups, dtype=torch.int32, device=dev)
+    step = _PLAIN_BLOCK * _PLAIN_BLOCKS_PER_STEP
+    for s in range(0, n, step):
+        c, v, m = codes[s:s + step], values[s:s + step], mask[s:s + step]
+        pad = (-c.shape[0]) % _PLAIN_BLOCK
+        if pad:  # the reference pads with code -1
+            c = torch.cat([c, torch.full((pad,), -1, dtype=c.dtype, device=dev)])
+            v = torch.cat([v, torch.zeros(pad, A, dtype=v.dtype, device=dev)])
+            m = torch.cat([m, torch.zeros(pad, dtype=m.dtype, device=dev)])
+        v = torch.where(m[:, None], v, 0.0)
+        nb = c.shape[0] // _PLAIN_BLOCK
+        onehot = (c.view(nb, _PLAIN_BLOCK, 1) == iota).to(torch.float32)
+        out += torch.bmm(
+            onehot.transpose(1, 2), v.view(nb, _PLAIN_BLOCK, A)
+        ).sum(dim=0)
+    return out
+
+
+def grouped_aggregate(codes, values, mask, num_groups: int):
+    """Masked per-group sums for at most 128 groups
+    (csrc/grouped_aggregate.cu).
+
+    codes: int32 [n]; rows whose code lies outside [0, num_groups) add
+    nothing. values: float32 [n, A], contiguous. mask: bool [n]; rows where
+    it is False add nothing, whatever their values (NaN included).
+    Returns float32 [num_groups, A]. Any n is accepted (no padding)."""
+    import torch
+
+    if codes.dim() != 1 or values.dim() != 2 or mask.dim() != 1:
+        raise ValueError("grouped_aggregate: codes must be [n], values [n, A], mask [n]")
+    if not (values.shape[0] == codes.shape[0] == mask.shape[0]):
+        raise ValueError(
+            f"grouped_aggregate: codes {tuple(codes.shape)}, values "
+            f"{tuple(values.shape)} and mask {tuple(mask.shape)} disagree on n"
+        )
+    if (codes.dtype != torch.int32 or values.dtype != torch.float32
+            or mask.dtype != torch.bool):
+        raise TypeError(
+            f"grouped_aggregate: want int32 codes, float32 values and bool "
+            f"mask, got {codes.dtype}, {values.dtype} and {mask.dtype}"
+        )
+    if not (codes.device == values.device == mask.device):
+        raise ValueError("grouped_aggregate: inputs on different devices")
+    if not 0 <= num_groups <= GROUPED_AGGREGATE_MAX_GROUPS:
+        raise ValueError(
+            f"grouped_aggregate: {num_groups} groups outside "
+            f"[0, {GROUPED_AGGREGATE_MAX_GROUPS}]"
+        )
+    if codes.device.type == "cpu":
+        return grouped_aggregate_plain(codes, values, mask, num_groups)
+    if codes.device.type != "cuda":
+        raise ValueError(f"grouped_aggregate: unsupported device {codes.device}")
+    if not (codes.is_contiguous() and values.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("grouped_aggregate: inputs must be contiguous")
+    n, A = values.shape
+    if num_groups * A * 4 > _MAX_TILE_BYTES:
+        raise ValueError(
+            f"grouped_aggregate: a [{num_groups}, {A}] f32 tile exceeds one "
+            "block's shared memory"
+        )
+    lib = _load("grouped_aggregate")
+    out = torch.zeros(num_groups, A, dtype=torch.float32, device=values.device)
+    if n == 0 or A == 0 or num_groups == 0:
+        return out
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.bt_grouped_aggregate_f32(
+            codes.data_ptr(), values.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            n, A, num_groups, stream,
+        )
+    _check_launch("grouped_aggregate", rc)
+    _launches["grouped_aggregate"] += 1
+    return out
+
+
+def grouped_aggregate_arrays(codes, values, mask, num_groups: int, device=None):
+    """The JAX package's grouped_aggregate entry on numpy arrays:
+    out[g, a] = sum of values[i, a] over rows with codes[i] == g and
+    mask[i], as numpy float32 [G, A] read back through runtime.readback.
+    Returns None above 128 groups and zeros when there are no rows.
+    device=None runs on the card ("cuda"); pass a CPU device for the plain
+    version."""
+    import torch
+
+    from ballista_tpu_torch.ops.runtime import readback, upload
+
+    if num_groups > GROUPED_AGGREGATE_MAX_GROUPS:
+        return None
+    values = np.asarray(values, dtype=np.float32)
+    if len(codes) == 0:
+        return np.zeros((num_groups, values.shape[1]), dtype=np.float32)
+    dev = torch.device("cuda" if device is None else device)
+    out = grouped_aggregate(
+        upload(np.asarray(codes, dtype=np.int32), dev),
+        upload(values, dev),
+        upload(np.asarray(mask, dtype=np.bool_), dev),
+        num_groups,
+    )
+    return readback(out, rows=num_groups)

@@ -499,14 +499,17 @@ def readback_stats(reset: bool = False) -> Dict[str, int]:
     return out
 
 
-# which route each fused-stage run took: "batches", "pallas_sorted" (the
-# sorted_grouped_sum kernel route; the name is the JAX package's), or
-# "host" (the stage declined, with its reason counted). A stage that
-# declines still returns the right answer through the host operator, so
-# these counts are how a run proves where its aggregates ran.
+# which route each fused-stage run took: "batches", "sorted" (the
+# chunked-segment layout), "pallas_sorted" (the sorted_grouped_sum kernel
+# route; the names are the JAX package's), or "host" (the stage declined,
+# with its reason counted). A stage that declines still returns the right
+# answer through the host operator, so these counts are how a run proves
+# where its aggregates ran. Named events (e.g. "skew_replan": the top-k
+# prepare split dominant groups off its one-chunk cover) count beside them.
 _routing_lock = threading.Lock()
 _routes: Dict[str, int] = {}  # guarded-by: _routing_lock
 _decline_reasons: Dict[str, int] = {}  # guarded-by: _routing_lock
+_routing_events: Dict[str, int] = {}  # guarded-by: _routing_lock
 
 
 def record_route(route: str, reason: Optional[str] = None) -> None:
@@ -516,11 +519,19 @@ def record_route(route: str, reason: Optional[str] = None) -> None:
             _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
 
 
-def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
-    """{"routes": {route: n}, "reasons": {decline reason: n}}"""
+def record_routing_event(event: str) -> None:
     with _routing_lock:
-        out = {"routes": dict(_routes), "reasons": dict(_decline_reasons)}
+        _routing_events[event] = _routing_events.get(event, 0) + 1
+
+
+def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
+    """{"routes": {route: n}, "reasons": {decline reason: n},
+    "events": {event: n}}"""
+    with _routing_lock:
+        out = {"routes": dict(_routes), "reasons": dict(_decline_reasons),
+               "events": dict(_routing_events)}
         if reset:
             _routes.clear()
             _decline_reasons.clear()
+            _routing_events.clear()
     return out

@@ -11,12 +11,18 @@ on exactly the state the reference prepared:
     {"kind": "batches", "entries": [{"n_groups", "seg_bucket",
         "cols": {idx: array | (codes, lut)}, "codes", "row_valid",
         "key_values"}, ...]}
+    {"kind": "sorted", "layout", "cols": {idx: [V, L1] tiles | (tiles, lut)},
+        "clen", "key_values", "n_groups"}
     {"kind": "pallas_sorted", "codes", "cols", "row_valid", "key_values",
         "n_groups"}
     {"kind": "empty"}
 
 Arrays become tensors on `device`; (codes, lut) pairs stay pairs (the LUT
 encoding widen_cols understands); Arrow key values and counts pass through.
+A "sorted" entry's layout is rebuilt with SortedSegmentLayout.from_state
+from what the reference layout exposes (``state()``, ``owner``, ``clen``),
+so no object of the reference package crosses. Its fact-aggregate tiles
+("derived") are not ported: an entry that carries any is refused.
 String predicates compare dictionary codes, so a stage whose filters test
 strings needs the reference stage's dictionaries too; this helper carries
 only the prepared entry.
@@ -26,9 +32,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from ballista_tpu_torch.ops.layout import SortedSegmentLayout
 from ballista_tpu_torch.ops.runtime import upload
 
-_KINDS = ("batches", "pallas_sorted", "empty")
+_KINDS = ("batches", "sorted", "pallas_sorted", "empty")
 
 
 def _tensors(cols: dict, device) -> dict:
@@ -50,6 +57,21 @@ def prepared_from_reference(entry: dict, device) -> dict:
         raise ValueError(f"cannot carry a prepared entry of kind {kind!r}")
     if kind == "empty":
         return {"kind": "empty"}
+    if kind == "sorted":
+        if entry.get("derived"):
+            raise ValueError("cannot carry a sorted entry with derived tiles")
+        ref = entry["layout"]
+        layout = SortedSegmentLayout.from_state(
+            ref.state(), np.asarray(ref.owner), np.asarray(ref.clen)
+        )
+        return {
+            "kind": kind,
+            "layout": layout,
+            "cols": _tensors(entry["cols"], device),
+            "clen": upload(layout.clen, device),
+            "key_values": entry["key_values"],
+            "n_groups": int(entry["n_groups"]),
+        }
     if kind == "pallas_sorted":
         return {
             "kind": kind,

@@ -6,20 +6,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles every CUDA kernel of the package (nvcc, sm_90a).
-3. path: generates TPC-H at --sf and runs q1, q6, q15's revenue view and
-   q18's inner aggregate through the package's ExecutionContext on the
-   "cuda" backend (q15/q18 with ballista.tpu.sorted_kernel=pallas). Each
-   result is held against the package's "cpu" backend on the same data:
-   keys and counts equal, floats within rtol 1e-4 / atol 2e-3 (f32 device
-   columns). Asserts the routes ("batches" for q1/q6, "pallas_sorted" for
-   q15/q18), zero host declines, readbacks recorded, and at least two
-   launches of the sorted_grouped_sum kernel. Prints cold and warm
-   (median of 5) milliseconds per query.
-4. kernels: runs each kernel against its plain PyTorch version on the card
-   at the shapes the path gave it, plus a skewed case; counts must be
+3. path: generates TPC-H at --sf and runs, through the package's
+   ExecutionContext on the "cuda" backend: q1 and q6 ("batches" route);
+   q15's revenue view and q18's inner aggregate under
+   ballista.tpu.sorted_kernel=pallas ("pallas_sorted", the sorted_grouped_sum
+   kernel) and under the default configuration ("sorted", the
+   chunked-segment layout); and the single-table top-k query TOPK_REVENUE
+   (a SINGLE aggregate with the fused top-k epilogue, "sorted", exactly 10
+   rows read back per run) beside its unfused twin (order by revenue + 0).
+   Each result is held against the package's "cpu" backend on the same data
+   (computed once per SQL): keys and counts equal, floats within rtol 1e-4 /
+   atol 2e-3 (f32 device columns); the top-k keys equal the unfused device
+   run's. Asserts the routes, zero host declines, readbacks recorded, and at
+   least two launches of the sorted_grouped_sum kernel. Prints cold and warm
+   (median of 5) milliseconds per query. Launch counters are 0 when it
+   starts.
+4. kernels: runs sorted_grouped_sum against its plain PyTorch version on the
+   card at the shapes the path gave it, plus a skewed case; counts must be
    equal, sums within rtol 1e-5 and atol 1e-3 x max|row sum| (atomics
    change the summation order). Times kernel, plain version and a library
    call with CUDA events (median of 20 after warm-up).
+5. grouped_aggregate: not on the main path (its launches there are 0); it
+   runs from its own entry, grouped_aggregate_arrays, on every batch of the
+   q1 stage's resident entries (codes, row_valid AND filters, the f32
+   sum inputs as [N, A]), with its launch counter set to 0 before and read
+   after. Each batch is held against the plain version and against the
+   stage's own f32 group sums for that batch, with the tolerance of phase
+   4; then two full-size synthetic cases at the lineitem row count (A = 8,
+   ~98 % of rows kept, G = 4 for contention and G = 128 for the cap) are
+   checked and timed like phase 4.
 
 Prints one {"kernels": [...]} line, then the nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or the JAX package.
@@ -36,6 +51,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -56,6 +73,15 @@ Q18_INNER = (
     "select l_orderkey, sum(l_quantity) as sum_qty from lineitem "
     "group by l_orderkey having sum(l_quantity) > 300"
 )
+TOPK_K = 10
+TOPK_REVENUE = (
+    "select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue "
+    "from lineitem group by l_orderkey order by revenue desc limit 10"
+)
+# a computed sort key defeats the planner's top-k annotation: every group is
+# read back and the host Sort+Limit picks the rows
+TOPK_REVENUE_UNFUSED = TOPK_REVENUE.replace("order by revenue desc", "order by revenue + 0 desc")
+PALLAS = {"ballista.tpu.sorted_kernel": "pallas"}
 
 
 def fail(msg: str) -> None:
@@ -118,6 +144,23 @@ def _compare(name, dev, host) -> None:
             fail(f"{name}: column {c} differs")
 
 
+def _topk_aggregate(ctx, sql):
+    """The plan's aggregate for the top-k query: one SINGLE aggregate that
+    carries the planner's top-k annotation."""
+    plan = ctx.create_physical_plan(ctx.sql(sql).logical_plan())
+    aggs, stack = [], [plan]
+    while stack:
+        node = stack.pop()
+        if type(node).__name__ == "HashAggregateExec":
+            aggs.append(node)
+        stack.extend(node.children())
+    if [a.mode.value for a in aggs] != ["single"]:
+        fail(f"top-k: expected one SINGLE aggregate, got {[a.mode.value for a in aggs]}")
+    tk = getattr(aggs[0], "_topk_pushdown", None)
+    if tk is None or tk["k"] != TOPK_K:
+        fail(f"top-k: the aggregate carries no k={TOPK_K} annotation ({tk})")
+
+
 def phase_path(sf: float, seed: int, data_dir: str):
     import torch
 
@@ -130,24 +173,33 @@ def phase_path(sf: float, seed: int, data_dir: str):
     t0 = time.perf_counter()
     generate(data_dir, sf=sf, parts=2, seed=seed)
     log(f"datagen sf={sf}: {time.perf_counter() - t0:.1f} s")
+    q1 = (ROOT / "benchmarks/tpch/queries/q1.sql").read_text()
+    q6 = (ROOT / "benchmarks/tpch/queries/q6.sql").read_text()
+    # name, sql, extra settings, route, rows each run must read back (the
+    # fused top-k), or None
     queries = [
-        ("q1", (ROOT / "benchmarks/tpch/queries/q1.sql").read_text(), False, "batches"),
-        ("q6", (ROOT / "benchmarks/tpch/queries/q6.sql").read_text(), False, "batches"),
-        ("q15_revenue", Q15_REVENUE, True, "pallas_sorted"),
-        ("q18_inner", Q18_INNER, True, "pallas_sorted"),
+        ("q1", q1, {}, "batches", None),
+        ("q6", q6, {}, "batches", None),
+        ("q15_revenue_pallas", Q15_REVENUE, PALLAS, "pallas_sorted", None),
+        ("q18_inner_pallas", Q18_INNER, PALLAS, "pallas_sorted", None),
+        ("q15_revenue", Q15_REVENUE, {}, "sorted", None),
+        ("q18_inner", Q18_INNER, {}, "sorted", None),
+        ("topk_revenue", TOPK_REVENUE, {}, "sorted", TOPK_K),
+        ("topk_revenue_unfused", TOPK_REVENUE_UNFUSED, {}, "sorted", None),
     ]
+    base = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": ""}
+    host_ctx = ExecutionContext(BallistaConfig({**base, "ballista.executor.backend": "cpu"}))
+    register_all(host_ctx, data_dir)
+    host_answers = {}
+    results = {}
     times = {}
     # the main path: every launch counter starts at 0 here
     cuda_kernels.reset_launch_counts()
-    for name, sql, pallas, route in queries:
-        settings = {
-            "ballista.executor.backend": "cuda",
-            "ballista.tpu.layout_cache_dir": "",
-        }
-        if pallas:
-            settings["ballista.tpu.sorted_kernel"] = "pallas"
-        ctx = ExecutionContext(BallistaConfig(settings))
+    for name, sql, extra, route, fused_rows in queries:
+        ctx = ExecutionContext(BallistaConfig({**base, **extra}))
         register_all(ctx, data_dir)
+        if fused_rows is not None:
+            _topk_aggregate(ctx, sql)
         runtime.routing_stats(reset=True)
         runtime.readback_stats(reset=True)
         runtime.ingest_stats(reset=True)
@@ -156,7 +208,7 @@ def phase_path(sf: float, seed: int, data_dir: str):
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         routes = runtime.routing_stats()
-        reads = runtime.readback_stats()
+        reads = runtime.readback_stats(reset=True)
         ingest = runtime.ingest_stats()
         if routes["routes"].get("host") or routes["reasons"]:
             fail(f"{name}: a stage declined to the host: {routes}")
@@ -164,30 +216,52 @@ def phase_path(sf: float, seed: int, data_dir: str):
             fail(f"{name}: expected route {route!r}, recorded {routes['routes']}")
         if reads["readbacks"] < 1:
             fail(f"{name}: no readback recorded")
+        if fused_rows is not None and reads["rows"] != fused_rows:
+            fail(f"{name}: read back {reads['rows']} rows, not {fused_rows}")
         warm = []
         for _ in range(5):
             t0 = time.perf_counter()
             again = ctx.sql(sql).collect()
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0) * 1e3)
-        host_ctx = ExecutionContext(
-            BallistaConfig({**settings, "ballista.executor.backend": "cpu"})
-        )
-        register_all(host_ctx, data_dir)
-        expect = host_ctx.sql(sql).collect()
-        _compare(name, got, expect)
-        _compare(name + " (warm)", again, expect)
+        warm_reads = runtime.readback_stats(reset=True)
+        if fused_rows is not None and warm_reads["rows"] != 5 * fused_rows:
+            fail(f"{name}: warm runs read back {warm_reads['rows']} rows, "
+                 f"not 5 x {fused_rows}")
+        if sql not in host_answers:
+            host_answers[sql] = host_ctx.sql(sql).collect()
+        expect = host_answers[sql]
+        if name.startswith("topk"):
+            # the top k groups by an f32 device sum: values within the
+            # tolerance of the host's, in rank order (a near-tie at the k-th
+            # group may pick another key than the f64 host sum)
+            for label, t in ((name, got), (name + " (warm)", again)):
+                if not np.allclose(t.column("revenue").to_numpy(),
+                                   expect.column("revenue").to_numpy(),
+                                   rtol=RTOL_PATH, atol=ATOL_PATH):
+                    fail(f"{label}: revenue differs from the cpu backend's")
+        else:
+            _compare(name, got, expect)
+            _compare(name + " (warm)", again, expect)
+        results[name] = got
         times[name] = {
             "route": route, "rows": got.num_rows, "cold_ms": cold_ms,
             "warm_ms": statistics.median(warm), "readbacks": reads["readbacks"],
-            "readback_bytes": reads["bytes"],
+            "readback_rows": reads["rows"], "readback_bytes": reads["bytes"],
             # the cold run's host prepare: scan (read + decode + rank),
-            # encode (lower + narrow), upload (h2d enqueue), wall
+            # encode (lower + narrow + layout), upload (h2d enqueue), wall
             "prepare_ms": {k: ingest[k] * 1e3 for k in
                            ("scan_s", "encode_s", "upload_s", "wall_s")},
         }
         log(f"{name}: {times[name]}")
     launches = cuda_kernels.launch_counts()
+    fused_keys = results["topk_revenue"].column("l_orderkey").to_pylist()
+    unfused_keys = results["topk_revenue_unfused"].column("l_orderkey").to_pylist()
+    if fused_keys != unfused_keys:
+        fail(f"top-k: fused keys {fused_keys} != unfused device keys {unfused_keys}")
+    times["topk_revenue"]["keys_equal_cpu"] = (
+        fused_keys == host_answers[TOPK_REVENUE].column("l_orderkey").to_pylist()
+    )
     if launches["sorted_grouped_sum"] < 2:
         fail(f"sorted_grouped_sum launched {launches['sorted_grouped_sum']} times")
     return times, launches
@@ -258,6 +332,15 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
+def _within(got, want, scale_dim: int):
+    """(ok, max abs err): |got - want| <= RTOL_KERNEL |want| + ATOL_KERNEL_REL
+    x the largest |want| along scale_dim (one output row or column)."""
+    err = (got - want).abs()
+    scale = want.abs().amax(dim=scale_dim, keepdim=True)
+    tol = RTOL_KERNEL * want.abs() + ATOL_KERNEL_REL * scale
+    return not bool((err > tol).any()), (float(err.max()) if err.numel() else 0.0)
+
+
 def phase_kernels(seed: int, launches: dict):
     import torch
 
@@ -274,11 +357,9 @@ def phase_kernels(seed: int, launches: dict):
         torch.cuda.synchronize()
         if not torch.equal(got[0], want[0]):
             fail(f"sorted_grouped_sum {name}: counts differ")
-        err = (got - want).abs()
-        scale = want.abs().amax(dim=1, keepdim=True)
-        tol = RTOL_KERNEL * want.abs() + ATOL_KERNEL_REL * scale
-        if bool((err > tol).any()):
-            fail(f"sorted_grouped_sum {name}: sums differ (max abs err {err.max().item()})")
+        ok, err = _within(got, want, 1)
+        if not ok:
+            fail(f"sorted_grouped_sum {name}: sums differ (max abs err {err})")
         nv, n = vals.shape
         lib_vals = vals.t().contiguous()
         kernel_ms = _time_ms(lambda: ck.sorted_grouped_sum(codes, vals, G))
@@ -289,7 +370,7 @@ def phase_kernels(seed: int, launches: dict):
         lib = torch.segment_reduce(
             lib_vals, "sum", lengths=torch.bincount(codes, minlength=G), axis=0
         ).t()
-        if not torch.allclose(lib, want, rtol=1e-4, atol=1e-3 * float(scale.max())):
+        if not torch.allclose(lib, want, rtol=1e-4, atol=1e-3 * float(want.abs().max())):
             fail(f"library call disagrees with the plain version on {name}")
         nbytes = n * 4 + nv * n * 4 + nv * G * 4
         ops = nv * n
@@ -297,7 +378,7 @@ def phase_kernels(seed: int, launches: dict):
         bound_ops_ms = ops / F32_FLOPS * 1e3
         results.append({
             "case": name, "n": n, "nv": nv, "groups": G,
-            "max_abs_err": float(err.max()), "ms": kernel_ms,
+            "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -323,6 +404,137 @@ def phase_kernels(seed: int, launches: dict):
     }]
 
 
+def _q1_batches():
+    """Per batch entry of the q1 stage (the path's one grouped "batches"
+    stage): (codes int32 [N], f32 sum inputs [N, A], mask = row_valid AND
+    the filters [N], group count, the stage's own f32 group sums [G, A]),
+    and the stage's row count."""
+    import torch
+
+    from ballista_tpu_torch.ops import kernels
+    from ballista_tpu_torch.ops.runtime import upload, widen_cols
+    from ballista_tpu_torch.ops.stage import _rows_like
+
+    stages = [
+        s for s in list(kernels._stage_cache.values())
+        if s not in (None, False) and s.group_exprs
+        and any(e["kind"] == "batches" for e in s._device_cache.values())
+    ]
+    if len(stages) != 1:
+        fail(f"expected one grouped batches stage (q1), found {len(stages)}")
+    stage = stages[0]
+    aux = [upload(np.asarray(a), stage.device) for a in stage.compiler.build_aux()]
+    out, n_rows = [], 0
+    for prepared in stage._device_cache.values():
+        for b in prepared["entries"]:
+            cols = widen_cols(b["cols"])
+            mask = b["row_valid"]
+            for fm in stage.filter_masks:
+                mask = torch.logical_and(mask, fm(cols, aux))
+            vals = torch.stack([
+                _rows_like(vf.fn(cols, aux), mask).to(torch.float32)
+                for a, vf, ix in zip(stage.aggs, stage.value_fns, stage.int_exact)
+                if vf is not None and not ix and a.fn in ("sum", "avg")
+            ], dim=1).contiguous()
+            _, floats = stage._batch_step(
+                b["seg_bucket"], b["cols"], aux, b["codes"], b["row_valid"]
+            )
+            if floats is None or floats.shape[0] != vals.shape[1]:
+                fail("q1 stage: its f32 rows are not exactly its sum inputs")
+            G = b["n_groups"]
+            out.append((b["codes"].to(torch.int32).contiguous(), vals,
+                        mask.contiguous(), G, floats[:, :G].t()))
+            n_rows += int(b["row_valid"].sum())
+    return out, n_rows
+
+
+def phase_grouped_aggregate(seed: int, launches: dict):
+    import torch
+
+    from ballista_tpu_torch.ops import cuda_kernels as ck
+
+    batches, n_rows = _q1_batches()
+    # its own entry, the one a user calls: counted from 0 across its runs
+    ck.reset_launch_counts()
+    q1_err = q1_stage_err = 0.0
+    for codes, vals, mask, G, stage_sums in batches:
+        got = ck.grouped_aggregate_arrays(
+            codes.cpu().numpy(), vals.cpu().numpy(), mask.cpu().numpy(), G
+        )
+        got = torch.from_numpy(got).to(vals.device)
+        ok, err = _within(got, ck.grouped_aggregate_plain(codes, vals, mask, G), 0)
+        if not ok:
+            fail(f"grouped_aggregate q1 batch: differs from the plain version ({err})")
+        ok, stage_err = _within(got, stage_sums, 0)
+        if not ok:
+            fail(f"grouped_aggregate q1 batch: differs from the stage's sums ({stage_err})")
+        q1_err, q1_stage_err = max(q1_err, err), max(q1_stage_err, stage_err)
+    entry_launches = ck.launch_counts()["grouped_aggregate"]
+    if entry_launches != len(batches):
+        fail(f"grouped_aggregate: {entry_launches} launches for {len(batches)} batches")
+    results = [{
+        "case": "q1_batches", "batches": len(batches), "n": n_rows,
+        "groups": batches[0][3], "values": batches[0][1].shape[1],
+        "max_abs_err": q1_err, "max_abs_err_vs_stage": q1_stage_err,
+    }]
+    log(f"grouped_aggregate q1: {results[-1]}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = 8
+    for G in (4, 128):
+        codes = torch.randint(0, G, (n_rows,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        vals = torch.rand(n_rows, A, generator=gen, device=dev) * 200 - 100
+        mask = torch.rand(n_rows, generator=gen, device=dev) < 0.98
+        got = ck.grouped_aggregate(codes, vals, mask, G)
+        want = ck.grouped_aggregate_plain(codes, vals, mask, G)
+        torch.cuda.synchronize()
+        ok, err = _within(got, want, 0)
+        if not ok:
+            fail(f"grouped_aggregate G={G}: differs from the plain version ({err})")
+
+        def library():
+            return torch.zeros(G, A, device=dev).index_add_(0, codes, vals * mask[:, None])
+
+        if not torch.allclose(library(), want, rtol=1e-4,
+                              atol=1e-3 * float(want.abs().max())):
+            fail(f"grouped_aggregate G={G}: the library call disagrees")
+        kernel_ms = _time_ms(lambda: ck.grouped_aggregate(codes, vals, mask, G))
+        plain_ms = _time_ms(lambda: ck.grouped_aggregate_plain(codes, vals, mask, G))
+        library_ms = _time_ms(library)
+        bound_bytes_ms = (n_rows * (4 + 1 + 4 * A) + G * A * 4) / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = n_rows * A / F32_FLOPS * 1e3
+        results.append({
+            "case": f"synthetic_g{G}", "n": n_rows, "values": A, "groups": G,
+            "kept": float(mask.float().mean()), "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        })
+        log(f"grouped_aggregate G={G}: {results[-1]}")
+        del codes, vals, mask
+    # the headline is q1's contention at full size: G = 4
+    head = results[1]
+    return {
+        "name": "grouped_aggregate",
+        "route": "cuda",
+        "source": "ballista_tpu_torch/csrc/grouped_aggregate.cu",
+        "replaces": "ballista_tpu/ops/pallas_kernels.py:211",
+        # not on the main path: it runs only from its entry point
+        "launches": launches["grouped_aggregate"],
+        "on_main_path": False,
+        "entry": "ballista_tpu_torch.ops.cuda_kernels.grouped_aggregate_arrays",
+        "entry_launches": entry_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "library_ms": head["library_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "cases": results,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -340,6 +552,7 @@ def main() -> int:
     try:
         times, launches = phase_path(args.sf, args.seed, data_dir)
         kernels = phase_kernels(args.seed, launches)
+        kernels.append(phase_grouped_aggregate(args.seed, launches))
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print(json.dumps({"queries": times, "build_s": build_s, "sf": args.sf}))

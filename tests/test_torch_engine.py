@@ -127,6 +127,7 @@ _PALLAS = {**_BASE, "ballista.tpu.sorted_kernel": "pallas"}
         ("q6", _BASE, "batches", 2e-5, 0.0),
         ("q15_revenue", _PALLAS, "batches", 1e-4, 2e-3),
         ("q18_inner", _PALLAS, "pallas_sorted", 1e-4, 2e-3),
+        ("q18_inner", _BASE, "sorted", 1e-4, 2e-3),
     ],
 )
 def test_tpch_query_matches_reference(tpch_dir, name, settings, route, rtol, atol):
@@ -149,20 +150,37 @@ def test_highcard_filter_expression_matches_reference(highcard_path):
     _assert_close(jax_out, torch_out, 1e-4, 2e-3)
 
 
-def test_highcard_without_kernel_declines_to_host(highcard_path):
-    """Past MAX_GROUPS without sorted_kernel=pallas the port needs the
-    layout route, which it does not have yet: the stage declines with that
-    reason, and the host path still returns the reference's answer."""
+def test_highcard_default_route_matches_reference(highcard_path):
+    """Past MAX_GROUPS under the default configuration both packages take
+    the chunked-segment layout route."""
     from ballista_tpu_torch.ops import runtime
 
     runtime.routing_stats(reset=True)
-    jax_out, _, torch_out, torch_routes = _run_both(
+    jax_out, jax_routes, torch_out, torch_routes = _run_both(
         HIGHCARD, _BASE, lambda ctx: ctx.register_parquet("t", highcard_path)
+    )
+    stats = runtime.routing_stats(reset=True)
+    assert torch_routes == jax_routes == ["sorted"]
+    assert stats["routes"] == {"sorted": 1} and not stats["reasons"]
+    _assert_close(jax_out, torch_out, 1e-4, 2e-3)
+
+
+def test_highcard_without_kernel_declines_to_host(highcard_path):
+    """Past MAX_GROUPS without the sorted kernel, the layout route runs; a
+    stage whose tiles exceed ballista.tpu.hbm_budget_bytes still declines
+    to the host with that reason, and the host path returns the
+    reference's answer."""
+    from ballista_tpu_torch.ops import runtime
+
+    runtime.routing_stats(reset=True)
+    tiny = {**_BASE, "ballista.tpu.hbm_budget_bytes": str(1 << 16)}
+    jax_out, _, torch_out, torch_routes = _run_both(
+        HIGHCARD, tiny, lambda ctx: ctx.register_parquet("t", highcard_path)
     )
     stats = runtime.routing_stats(reset=True)
     assert torch_routes == []
     assert stats["routes"].get("host") == 1
-    assert any("sorted layout route not yet ported" in r for r in stats["reasons"])
+    assert any("exceed the HBM budget" in r for r in stats["reasons"])
     _assert_close(jax_out, torch_out, 1e-4, 2e-3)
 
 

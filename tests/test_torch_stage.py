@@ -1,6 +1,7 @@
 """The port's fused stage step run on exactly the state the JAX stage
 prepared: ops/state.py::prepared_from_reference carries a JAX stage's
-`_device_cache` entry ("batches" and "pallas_sorted") to torch tensors, and
+`_device_cache` entry ("batches" and "pallas_sorted" here; "sorted" in
+tests/test_torch_layout.py) to torch tensors, and
 the port's FusedAggregateStage.execute_prepared must produce the same
 partial-state table as the JAX stage's own run.
 
@@ -150,7 +151,7 @@ def test_pallas_sorted_entry_from_reference(tmp_path):
 
 def test_prepared_from_reference_rejects_unknown_kind():
     with pytest.raises(ValueError):
-        prepared_from_reference({"kind": "sorted"}, CPU)
+        prepared_from_reference({"kind": "fact"}, CPU)
 
 
 def test_floatbits_match_reference():
