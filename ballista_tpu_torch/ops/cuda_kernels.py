@@ -6,6 +6,9 @@ plain C interface. ``build()`` compiles every source with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/lib<name>.so`` at the repository root (one
 ``nvcc`` per source, all started together), and the library is loaded with
 ``ctypes``. Nothing is compiled or loaded when this module is imported.
+``nvcc`` runs with ``-Xptxas -v``; its output is kept beside each library
+(``lib<name>.log``), and ``build()`` returns each kernel's registers,
+shared memory, stack and spills from it.
 
 A wrapper takes its kernel's plain version only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises: a failed build or launch is
@@ -25,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -37,7 +41,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # launches per kernel: each wrapper adds one where it launches its kernel,
@@ -75,6 +79,56 @@ def _lib_path(src: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"lib{src.stem}.so"
 
 
+def _log_path(src: pathlib.Path) -> pathlib.Path:
+    return BUILD_DIR / f"lib{src.stem}.log"
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+)
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(names: List[str]) -> List[str]:
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def parse_ptxas(text: str) -> List[dict]:
+    """Per kernel entry in ``nvcc -Xptxas -v`` output: its name (demangled
+    where c++filt exists), registers, static shared memory bytes, stack
+    frame bytes and spill store / load bytes."""
+    facts: List[dict] = []
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            facts.append({"function": m.group(1), "registers": None,
+                          "smem_bytes": 0, "stack_bytes": None,
+                          "spill_stores": None, "spill_loads": None})
+            continue
+        if not facts:
+            continue
+        cur = facts[-1]
+        m = _FRAME.search(line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = (
+                int(g) for g in m.groups())
+        m = _USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = _SMEM.search(line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    for f, name in zip(facts, _demangle([f["function"] for f in facts])):
+        f["function"] = name
+    return facts
+
+
 # holds-lock: _build_lock
 def _build_locked(names: Optional[List[str]] = None) -> Dict[str, float]:
     """Compile the sources that are missing or stale, one nvcc process per
@@ -88,7 +142,8 @@ def _build_locked(names: Optional[List[str]] = None) -> Dict[str, float]:
         if names is not None and src.stem not in names:
             continue
         lib = _lib_path(src)
-        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        newest = max(f.stat().st_mtime for f in [src, *CSRC.glob("*.cuh")])
+        if lib.exists() and lib.stat().st_mtime >= newest:
             continue
         todo.append(src)
     if not todo:
@@ -109,6 +164,7 @@ def _build_locked(names: Optional[List[str]] = None) -> Dict[str, float]:
         if p.returncode != 0:
             errors.append(f"nvcc failed for {src.name} (rc {p.returncode}):\n{out}")
             continue
+        _log_path(src).write_text(out)
         os.replace(tmp, _lib_path(src))
         took[src.stem] = time.perf_counter() - t0
     if errors:
@@ -116,10 +172,19 @@ def _build_locked(names: Optional[List[str]] = None) -> Dict[str, float]:
     return took
 
 
-def build() -> Dict[str, float]:
-    """Build every kernel source now (a no-op for up-to-date libraries)."""
+def build() -> Dict[str, dict]:
+    """Build every kernel source now (a no-op for up-to-date libraries).
+    Returns {name: {"seconds": compile seconds, or None when it was up to
+    date, "ptxas": per-kernel registers, shared memory and spills}}."""
     with _build_lock:
-        return _build_locked()
+        took = _build_locked()
+    return {
+        src.stem: {
+            "seconds": took.get(src.stem),
+            "ptxas": parse_ptxas(_log_path(src).read_text()) if _log_path(src).exists() else [],
+        }
+        for src in _sources()
+    }
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -132,6 +197,12 @@ def _load(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"kernel library {path} was not built")
             lib = ctypes.CDLL(str(path))
             _bind(name, lib)
+            if (name == "sorted_grouped_sum"
+                    and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
+                raise RuntimeError(
+                    f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
+                    f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
+                )
             _libs[name] = lib
         return lib
 
@@ -140,11 +211,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     if name == "sorted_grouped_sum":
         fn = lib.bt_sorted_grouped_sum_f32
-        fn.argtypes = [vp, vp, vp, ll, i, ll, vp]
+        fn.argtypes = [vp, vp, vp, vp, ll, i, ll, ll, vp]
         fn.restype = i
+        lib.bt_sorted_grouped_sum_tile_rows.argtypes = []
+        lib.bt_sorted_grouped_sum_tile_rows.restype = i
     elif name == "grouped_aggregate":
         fn = lib.bt_grouped_aggregate_f32
-        fn.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, ll, vp]
         fn.restype = i
 
 
@@ -154,6 +227,21 @@ def _check_launch(name: str, rc: int) -> None:
 
 
 # -- sorted_grouped_sum -------------------------------------------------------
+# rows per tile of the kernel (TILE in csrc/sorted_grouped_sum.cu, checked
+# against the library when it loads) and value rows per pass over the codes
+SORTED_TILE_ROWS = 2048
+SORTED_VALUE_ROWS_PER_PASS = 4
+
+
+def sorted_grouped_sum_geometry(n: int, nv: int):
+    """(tiles, scratch shape, passes) of a kernel call over n rows and nv
+    value rows: scratch holds each tile's first and last run sums per value
+    row; the codes are read once per pass of up to 4 value rows."""
+    tiles = -(-n // SORTED_TILE_ROWS)
+    passes = -(-nv // SORTED_VALUE_ROWS_PER_PASS)
+    return tiles, (tiles, 2, nv), passes
+
+
 def sorted_grouped_sum_plain(codes, values, num_groups: int):
     """Plain PyTorch version: out[v, g] = sum of values[v, i] over rows with
     codes[i] == g."""
@@ -198,14 +286,17 @@ def sorted_grouped_sum(codes, values, num_groups: int):
         raise ValueError("sorted_grouped_sum: inputs must be contiguous")
     lib = _load("sorted_grouped_sum")
     nv, n = values.shape
-    out = torch.zeros(nv, num_groups, dtype=torch.float32, device=values.device)
     if n == 0 or nv == 0 or num_groups == 0:
-        return out
+        return torch.zeros(nv, num_groups, dtype=torch.float32, device=values.device)
+    # the kernel writes every output element once: no zero-fill
+    out = torch.empty(nv, num_groups, dtype=torch.float32, device=values.device)
+    tiles, scratch_shape, _ = sorted_grouped_sum_geometry(n, nv)
+    scratch = torch.empty(scratch_shape, dtype=torch.float32, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = lib.bt_sorted_grouped_sum_f32(
-            codes.data_ptr(), values.data_ptr(), out.data_ptr(),
-            n, nv, num_groups, stream,
+            codes.data_ptr(), values.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            n, nv, num_groups, tiles, stream,
         )
     _check_launch("sorted_grouped_sum", rc)
     _launches["sorted_grouped_sum"] += 1
@@ -222,6 +313,29 @@ _PLAIN_BLOCK = 1024
 _PLAIN_BLOCKS_PER_STEP = 64
 # one block's shared memory on sm_90: the kernel's [G, A] tile must fit
 _MAX_TILE_BYTES = 232448
+# the kernel's modes (csrc/grouped_aggregate.cu) and their limits
+GA_MODE_REGISTERS, GA_MODE_WARP_TILES = 0, 1
+_GA_REG_GROUPS, _GA_REG_COLUMNS = 8, 8
+# bytes of values per ring tile of "registers", and the tile row cap
+_GA_TILE_VALUE_BYTES = 32 * 1024
+_GA_MAX_TILE_ROWS = 1024
+
+
+def grouped_aggregate_geometry(n: int, num_groups: int, A: int):
+    """(mode, tile rows, tiles) of a kernel call: "registers" (a ring of
+    row tiles, sums in registers) for at most 8 groups and 8 columns, else
+    "warp tiles" (rows read directly, per-warp [A, G] tiles in shared
+    memory; tile rows unused). A ring tile holds about 32 KB of values, a
+    multiple of 16 rows, at most 1024."""
+    if num_groups <= _GA_REG_GROUPS and A <= _GA_REG_COLUMNS:
+        mode = GA_MODE_REGISTERS
+    else:
+        mode = GA_MODE_WARP_TILES
+    rows = max(1, _GA_TILE_VALUE_BYTES // (4 * max(A, 1)))
+    if rows >= 16:
+        rows -= rows % 16
+    rows = min(rows, _GA_MAX_TILE_ROWS)
+    return mode, rows, -(-n // rows)
 
 
 def grouped_aggregate_plain(codes, values, mask, num_groups: int):
@@ -302,11 +416,12 @@ def grouped_aggregate(codes, values, mask, num_groups: int):
     out = torch.zeros(num_groups, A, dtype=torch.float32, device=values.device)
     if n == 0 or A == 0 or num_groups == 0:
         return out
+    mode, tile_rows, tiles = grouped_aggregate_geometry(n, num_groups, A)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = lib.bt_grouped_aggregate_f32(
             codes.data_ptr(), values.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            n, A, num_groups, stream,
+            n, A, num_groups, mode, tile_rows, tiles, stream,
         )
     _check_launch("grouped_aggregate", rc)
     _launches["grouped_aggregate"] += 1

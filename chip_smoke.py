@@ -25,7 +25,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card at the shapes the path gave it, plus a skewed case; counts must be
    equal, sums within rtol 1e-5 and atol 1e-3 x max|row sum| (atomics
    change the summation order). Times kernel, plain version and a library
-   call with CUDA events (median of 20 after warm-up).
+   call as device time per call (`ms`: 20 calls back to back between two
+   CUDA events, queued behind a device sleep so that host enqueue time is
+   not counted, median of 5 such windows; every timed input is > 50 MB, more
+   than the L2 holds), the kernel also by PRs 1 and 2's method (`ms_single`:
+   one call per event pair) and by torch.profiler (`device_ms`).
 5. grouped_aggregate: not on the main path (its launches there are 0); it
    runs from its own entry, grouped_aggregate_arrays, on every batch of the
    q1 stage's resident entries (codes, row_valid AND filters, the f32
@@ -36,7 +40,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ~98 % of rows kept, G = 4 for contention and G = 128 for the cap) are
    checked and timed like phase 4.
 
-Prints one {"kernels": [...]} line, then the nvidia-smi line, and last
+With --compare-sources DIR, phases 4 and 5 also build the kernel sources
+in DIR (PR 2's C interface, e.g. unpacked with `git show`) and time them on
+the same inputs in turns (previous, current, current, previous):
+`previous_ms`, `previous_ms_single`.
+
+Prints one {"ptxas": ..., "sass_atomics": ...} line (each kernel's
+registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
+SASS opcodes of each library), one {"kernels": [...]} line, then the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. It imports nothing of JAX or the JAX package.
 """
 
@@ -63,6 +75,8 @@ F32_FLOPS = 67e12
 
 RTOL_PATH, ATOL_PATH = 1e-4, 2e-3
 RTOL_KERNEL, ATOL_KERNEL_REL = 1e-5, 1e-3
+# kernel timing (see _time_ms): calls per window, windows per median
+TIME_REPS, TIME_WINDOWS = 20, 5
 
 Q15_REVENUE = (
     "select l_suppkey as supplier_no, sum(l_extendedprice * (1 - l_discount)) "
@@ -113,8 +127,104 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda_kernels.build()
     secs = time.perf_counter() - t0
-    log(f"build: {secs:.2f} s ({', '.join(built) or 'up to date'})")
-    return secs
+    log(f"build: {secs:.2f} s ({', '.join(built) or 'no sources'})")
+    facts = {name: b["ptxas"] for name, b in built.items()}
+    for name, kernels in facts.items():
+        for k in kernels:
+            if k["spill_stores"] or k["spill_loads"]:
+                log(f"build: {name}: {k['function']} spills "
+                    f"({k['spill_stores']} B stored, {k['spill_loads']} B loaded)")
+    return secs, facts
+
+
+def _previous_kernels(src_dir: str):
+    """The kernels built from `src_dir` (sorted_grouped_sum.cu and
+    grouped_aggregate.cu with PR 2's C interface: out zeroed by the caller,
+    no scratch), as callables that do what PR 2's wrappers did (allocate a
+    zeroed output, launch), plus their compiler facts. They are timed beside
+    the current kernels on the same card."""
+    import ctypes
+
+    import torch
+
+    from ballista_tpu_torch.ops import cuda_kernels
+
+    out_dir = cuda_kernels.BUILD_DIR.parent / "previous"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("sorted_grouped_sum", "grouped_aggregate"):
+        src = pathlib.Path(src_dir) / f"{name}.cu"
+        procs[name] = subprocess.Popen(
+            [cuda_kernels._nvcc(), *cuda_kernels.NVCC_FLAGS, "-o",
+             str(out_dir / f"lib{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    facts, libs = {}, {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"previous {name} did not build:\n{text}")
+        facts[name] = cuda_kernels.parse_ptxas(text)
+        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sgs = libs["sorted_grouped_sum"].bt_sorted_grouped_sum_f32
+    sgs.argtypes, sgs.restype = [vp, vp, vp, ll, i, ll, vp], i
+    ga = libs["grouped_aggregate"].bt_grouped_aggregate_f32
+    ga.argtypes, ga.restype = [vp, vp, vp, vp, ll, i, i, vp], i
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def sorted_grouped_sum(codes, vals, G):
+        nv, n = vals.shape
+        out = torch.zeros(nv, G, device=vals.device)
+        if sgs(codes.data_ptr(), vals.data_ptr(), out.data_ptr(), n, nv, G, stream()):
+            fail("previous sorted_grouped_sum: launch failed")
+        return out
+
+    def grouped_aggregate(codes, vals, mask, G):
+        n, A = vals.shape
+        out = torch.zeros(G, A, device=vals.device)
+        if ga(codes.data_ptr(), vals.data_ptr(), mask.data_ptr(), out.data_ptr(),
+              n, A, G, stream()):
+            fail("previous grouped_aggregate: launch failed")
+        return out
+
+    return {"sorted_grouped_sum": sorted_grouped_sum,
+            "grouped_aggregate": grouped_aggregate}, facts
+
+
+def _time_pair(kernel, previous):
+    """(ms, ms of the previous kernel, the four windows' medians): in turns
+    previous, current, current, previous on the same inputs; each figure
+    is the mean of its two turns. Without a previous kernel, one turn."""
+    if previous is None:
+        return _time_ms(kernel), None, None
+    turns = [_time_ms(previous), _time_ms(kernel), _time_ms(kernel), _time_ms(previous)]
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+
+
+def _sass_atomics():
+    """{library: {SASS opcode: count}} of the atomic and reduction
+    instructions in each built kernel library (cuobjdump -sass), or "not
+    measured" where the toolkit has no cuobjdump."""
+    import re
+
+    from ballista_tpu_torch.ops import cuda_kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return "not measured"
+    out = {}
+    for lib in sorted(cuda_kernels.BUILD_DIR.glob("lib*.so")):
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass {lib.name}: {sass.stderr.strip()}")
+        ops = {}
+        for m in re.finditer(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)", sass.stdout):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+        out[lib.stem[3:]] = ops
+    return out
 
 
 def _sorted_table(t):
@@ -314,7 +424,63 @@ def _skewed_case(seed: int, device):
     )
 
 
-def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per device millisecond, measured once."""
+    import torch
+
+    global _SLEEP_RATE
+    if _SLEEP_RATE is None:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_RATE = cycles / start.elapsed_time(end)
+    return _SLEEP_RATE
+
+
+_SLEEP_RATE = None
+
+
+def _time_ms(fn, reps: int = TIME_REPS, windows: int = TIME_WINDOWS,
+             warmup: int = 3) -> float:
+    """Device milliseconds per call: `reps` calls back to back between two
+    CUDA events, median over `windows` windows of elapsed / reps. Each window
+    is queued behind a device sleep longer than the host takes to enqueue
+    it, so the host's time per call (wrapper, allocation, ctypes) is not
+    counted while the device runs faster than the host. A call that
+    synchronises the host (torch.bincount) is timed at its own pace."""
+    import torch
+
+    host = []
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    ahead_ms = min(500.0, 1.0 + 2e3 * reps * max(host))
+    cycles = int(ahead_ms * _sleep_cycles_per_ms())
+    samples = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
+def _time_single_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """PRs 1 and 2's method, kept as `ms_single`: one call between two CUDA
+    events after the host waited for the device, median of `reps` (host
+    enqueue time included)."""
     import torch
 
     for _ in range(warmup):
@@ -332,6 +498,35 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
+def _device_ms(fn, kernel_names, reps: int = TIME_REPS):
+    """Device time per call of the kernels whose names hold one of
+    `kernel_names`, from torch.profiler's key_averages over `reps` calls;
+    "not measured" when the profiler records no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if any(k in ev.key for k in kernel_names):
+            total_us += float(getattr(ev, "device_time_total", None)
+                              or getattr(ev, "cuda_time_total", 0.0) or 0.0)
+    return total_us / reps / 1e3 if total_us > 0 else "not measured"
+
+
+def _previous_fields(prev, prev_ms, turns) -> dict:
+    """The previous kernel's numbers for a case's record (none without it)."""
+    if prev is None:
+        return {}
+    return {"previous_ms": prev_ms, "previous_ms_single": _time_single_ms(prev),
+            "turns_ms": turns}
+
+
 def _within(got, want, scale_dim: int):
     """(ok, max abs err): |got - want| <= RTOL_KERNEL |want| + ATOL_KERNEL_REL
     x the largest |want| along scale_dim (one output row or column)."""
@@ -341,7 +536,7 @@ def _within(got, want, scale_dim: int):
     return not bool((err > tol).any()), (float(err.max()) if err.numel() else 0.0)
 
 
-def phase_kernels(seed: int, launches: dict):
+def phase_kernels(seed: int, launches: dict, previous=None):
     import torch
 
     from ballista_tpu_torch.ops import cuda_kernels as ck
@@ -362,7 +557,20 @@ def phase_kernels(seed: int, launches: dict):
             fail(f"sorted_grouped_sum {name}: sums differ (max abs err {err})")
         nv, n = vals.shape
         lib_vals = vals.t().contiguous()
-        kernel_ms = _time_ms(lambda: ck.sorted_grouped_sum(codes, vals, G))
+        def kernel():
+            return ck.sorted_grouped_sum(codes, vals, G)
+
+        prev = None
+        if previous is not None:
+            def prev():
+                return previous(codes, vals, G)
+
+            ok, prev_err = _within(prev(), want, 1)
+            if not ok:
+                fail(f"previous sorted_grouped_sum {name}: sums differ ({prev_err})")
+        kernel_ms, prev_ms, turns = _time_pair(kernel, prev)
+        kernel_ms_single = _time_single_ms(kernel)
+        device_ms = _device_ms(kernel, ["sorted_grouped_sum"])
         plain_ms = _time_ms(lambda: ck.sorted_grouped_sum_plain(codes, vals, G))
         library_ms = _time_ms(lambda: torch.segment_reduce(
             lib_vals, "sum", lengths=torch.bincount(codes, minlength=G), axis=0
@@ -378,8 +586,10 @@ def phase_kernels(seed: int, launches: dict):
         bound_ops_ms = ops / F32_FLOPS * 1e3
         results.append({
             "case": name, "n": n, "nv": nv, "groups": G,
-            "max_abs_err": err, "ms": kernel_ms,
+            "max_abs_err": err, "ms": kernel_ms, "ms_single": kernel_ms_single,
+            "device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            **_previous_fields(prev, prev_ms, turns),
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         })
@@ -395,7 +605,9 @@ def phase_kernels(seed: int, launches: dict):
         "launches": launches["sorted_grouped_sum"],
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": head["ms"],
-        "kernel_ms": head["ms"],
+        "ms_single": head["ms_single"],
+        "device_ms": head["device_ms"],
+        **{k: head[k] for k in ("previous_ms", "previous_ms_single") if k in head},
         "plain_ms": head["plain_ms"],
         "library_ms": head["library_ms"],
         "bound_ms": head["bound_ms"],
@@ -448,7 +660,7 @@ def _q1_batches():
     return out, n_rows
 
 
-def phase_grouped_aggregate(seed: int, launches: dict):
+def phase_grouped_aggregate(seed: int, launches: dict, previous=None):
     import torch
 
     from ballista_tpu_torch.ops import cuda_kernels as ck
@@ -499,7 +711,20 @@ def phase_grouped_aggregate(seed: int, launches: dict):
         if not torch.allclose(library(), want, rtol=1e-4,
                               atol=1e-3 * float(want.abs().max())):
             fail(f"grouped_aggregate G={G}: the library call disagrees")
-        kernel_ms = _time_ms(lambda: ck.grouped_aggregate(codes, vals, mask, G))
+        def kernel():
+            return ck.grouped_aggregate(codes, vals, mask, G)
+
+        prev = None
+        if previous is not None:
+            def prev():
+                return previous(codes, vals, mask, G)
+
+            ok, prev_err = _within(prev(), want, 0)
+            if not ok:
+                fail(f"previous grouped_aggregate G={G}: differs ({prev_err})")
+        kernel_ms, prev_ms, turns = _time_pair(kernel, prev)
+        kernel_ms_single = _time_single_ms(kernel)
+        device_ms = _device_ms(kernel, ["grouped_aggregate"])
         plain_ms = _time_ms(lambda: ck.grouped_aggregate_plain(codes, vals, mask, G))
         library_ms = _time_ms(library)
         bound_bytes_ms = (n_rows * (4 + 1 + 4 * A) + G * A * 4) / HBM_BYTES_PER_S * 1e3
@@ -507,7 +732,9 @@ def phase_grouped_aggregate(seed: int, launches: dict):
         results.append({
             "case": f"synthetic_g{G}", "n": n_rows, "values": A, "groups": G,
             "kept": float(mask.float().mean()), "max_abs_err": err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": kernel_ms, "ms_single": kernel_ms_single, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **_previous_fields(prev, prev_ms, turns),
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         })
@@ -527,6 +754,9 @@ def phase_grouped_aggregate(seed: int, launches: dict):
         "entry_launches": entry_launches,
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": head["ms"],
+        "ms_single": head["ms_single"],
+        "device_ms": head["device_ms"],
+        **{k: head[k] for k in ("previous_ms", "previous_ms_single") if k in head},
         "plain_ms": head["plain_ms"],
         "library_ms": head["library_ms"],
         "bound_ms": head["bound_ms"],
@@ -539,6 +769,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=20260728)
+    ap.add_argument("--compare-sources", default=None, metavar="DIR",
+                    help="also build the kernel sources in DIR (PR 2's C "
+                         "interface) and time them beside the current ones")
     args = ap.parse_args()
 
     smi_line = phase_device()
@@ -547,15 +780,23 @@ def main() -> int:
 
     import ballista_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
+    sass = _sass_atomics()
+    previous = {}
+    if args.compare_sources:
+        previous, prev_facts = _previous_kernels(args.compare_sources)
+        ptxas = {**ptxas, "previous": prev_facts}
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_tpch_")
     try:
         times, launches = phase_path(args.sf, args.seed, data_dir)
-        kernels = phase_kernels(args.seed, launches)
-        kernels.append(phase_grouped_aggregate(args.seed, launches))
+        kernels = phase_kernels(args.seed, launches,
+                                previous.get("sorted_grouped_sum"))
+        kernels.append(phase_grouped_aggregate(args.seed, launches,
+                                               previous.get("grouped_aggregate")))
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print(json.dumps({"queries": times, "build_s": build_s, "sf": args.sf}))
+    print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -242,3 +242,131 @@ def test_grouped_aggregate_kernel_matches_plain_on_gpu(cuda_device):
         want = cuda_kernels.grouped_aggregate_plain(c, v, m, g)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-4, atol=1e-3)
+
+
+# -- the kernels' edges, on the card --------------------------------------------
+def _sorted_values(n, nv, lens, seed, offset=0):
+    """codes from run lengths (a tail that pads to n repeats the last code),
+    a mask row and nv - 1 masked value rows; with offset > 0 both arrays
+    start `offset` elements into a larger allocation (not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    codes = np.repeat(np.arange(len(lens), dtype=np.int32), lens)[:n]
+    codes = np.concatenate([codes, np.full(n - len(codes), codes[-1], np.int32)])
+    mask = (rng.random(n) < 0.8).astype(np.float32)
+    vals = rng.normal(size=(nv, n)).astype(np.float32) * mask
+    vals[0] = mask
+    c = torch.zeros(n + offset, dtype=torch.int32)
+    c[offset:] = torch.from_numpy(codes)
+    v = torch.zeros(nv * n + offset, dtype=torch.float32)
+    v[offset:] = torch.from_numpy(vals.reshape(-1))
+    return c[offset:], v[offset:].view(nv, n), int(codes.max()) + 1
+
+
+def _check_sorted_on_gpu(codes, vals, G, dev):
+    c, v = codes.to(dev), vals.to(dev)
+    if codes.storage_offset():  # keep the offset on the card
+        c = torch.zeros(codes.numel() + codes.storage_offset(), dtype=torch.int32,
+                        device=dev)[codes.storage_offset():]
+        c.copy_(codes)
+        v = torch.zeros(vals.numel() + vals.storage_offset(), device=dev)[
+            vals.storage_offset():].view(vals.shape)
+        v.copy_(vals)
+    before = cuda_kernels.launch_counts()["sorted_grouped_sum"]
+    got = sorted_grouped_sum(c, v, G)
+    again = sorted_grouped_sum(c, v, G)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["sorted_grouped_sum"] == before + 2
+    want = cuda_kernels.sorted_grouped_sum_plain(c, v, G)
+    _assert_matches(got.cpu().numpy(), want.cpu().numpy())
+    # a fixed summation order: two runs agree bit for bit
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096 * 3 + 1, 4096 * 3 + 2, 4096 * 3 + 3, 2048, 2049, 31])
+@pytest.mark.parametrize("nv", [1, 2, 5, 9])
+def test_sorted_kernel_unaligned_rows_on_gpu(cuda_device, n, nv):
+    """Value rows that start 4, 8 or 12 bytes past a 16-byte boundary (n mod
+    4 != 0), n below, at and one past a tile, and nv above the 4 value rows
+    of one pass over the codes."""
+    rng = np.random.default_rng(n + nv)
+    codes, vals, G = _sorted_values(n, nv, rng.integers(1, 9, n), seed=n)
+    _check_sorted_on_gpu(codes, vals, G, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 2047, 2048 * 7 + 3, 1_000_003])
+def test_sorted_kernel_single_group_on_gpu(cuda_device, n):
+    """One group spanning the whole input (many tiles: the fix-up pass)."""
+    codes, vals, G = _sorted_values(n, 3, [n], seed=n)
+    _check_sorted_on_gpu(codes, vals, G, cuda_device)
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_edges_on_gpu(cuda_device):
+    """Arrays that start off a 16-byte boundary, groups that no row holds
+    (written 0 by the kernel, which does not zero its output), and runs of
+    every length across tile edges."""
+    rng = np.random.default_rng(7)
+    lens = np.concatenate([[1], rng.integers(1, 3000, 60), [4096], [5000]])
+    n = int(lens.sum())
+    for offset in (1, 2, 3):
+        codes, vals, G = _sorted_values(n, 3, lens, seed=offset, offset=offset)
+        _check_sorted_on_gpu(codes, vals, G, cuda_device)
+    codes, vals, G = _sorted_values(5000, 2, rng.integers(1, 5, 5000), seed=8)
+    sparse = codes * 3 + 2  # groups 0, 1, 3, 4, ... hold no row
+    c, v = sparse.to(cuda_device), vals.to(cuda_device)
+    got = sorted_grouped_sum(c, v, int(sparse.max()) + 5)
+    want = cuda_kernels.sorted_grouped_sum_plain(c, v, int(sparse.max()) + 5)
+    _assert_matches(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [1, 3, 7, 8, 9])
+@pytest.mark.parametrize("g", [1, 4, 6, 128])
+def test_grouped_aggregate_kernel_shapes_on_gpu(cuda_device, a, g):
+    """Every mode of the kernel: A not a multiple of 4 (q1's 7), G up to
+    the cap, a ragged n, out-of-range codes and NaN in masked-out rows."""
+    n = 100_003
+    codes, vals, mask = _ga_case(n, g, a, 0.9, seed=a * 1000 + g, low=-1, high=g + 1)
+    vals[~mask] = np.nan
+    c, v, m = (torch.from_numpy(x).to(cuda_device) for x in (codes, vals, mask))
+    got = grouped_aggregate(c, v, m, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), _ga_oracle(codes, vals, mask, g),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_grouped_aggregate_kernel_edges_on_gpu(cuda_device):
+    """All masks false; inputs that start off a 16-byte boundary; the
+    "warp tiles" mode with more columns than the unrolled 8, and with
+    tiles too large for one per warp (warps share them and add with
+    atomics; past 48 KB one tile per block)."""
+    codes, vals, mask = _ga_case(50_001, 6, 7, 0.0, seed=1)
+    got = grouped_aggregate(*(torch.from_numpy(x).to(cuda_device)
+                              for x in (codes, vals, mask)), 6)
+    assert not got.any()
+    for off in (1, 3):
+        codes, vals, mask = _ga_case(70_001, 4, 7, 0.7, seed=off)
+        c = torch.zeros(len(codes) + off, dtype=torch.int32, device=cuda_device)[off:]
+        v = torch.zeros(vals.size + off, device=cuda_device)[off:].view(vals.shape)
+        m = torch.zeros(len(mask) + off, dtype=torch.bool, device=cuda_device)[off:]
+        c.copy_(torch.from_numpy(codes))
+        v.copy_(torch.from_numpy(vals))
+        m.copy_(torch.from_numpy(mask))
+        np.testing.assert_allclose(grouped_aggregate(c, v, m, 4).cpu().numpy(),
+                                   _ga_oracle(codes, vals, mask, 4), rtol=1e-4, atol=1e-3)
+    assert cuda_kernels.grouped_aggregate_geometry(10, 3, 300)[0] == cuda_kernels.GA_MODE_WARP_TILES
+    codes, vals, mask = _ga_case(3_001, 3, 300, 0.9, seed=5)
+    got = grouped_aggregate(*(torch.from_numpy(x).to(cuda_device)
+                              for x in (codes, vals, mask)), 3)
+    np.testing.assert_allclose(got.cpu().numpy(), _ga_oracle(codes, vals, mask, 3),
+                               rtol=1e-4, atol=1e-3)
+    for n, g, a in [(40_001, 128, 20), (5_003, 128, 300)]:
+        codes, vals, mask = _ga_case(n, g, a, 0.9, seed=a)
+        got = grouped_aggregate(*(torch.from_numpy(x).to(cuda_device)
+                                  for x in (codes, vals, mask)), g)
+        np.testing.assert_allclose(got.cpu().numpy(), _ga_oracle(codes, vals, mask, g),
+                                   rtol=1e-4, atol=1e-3)
