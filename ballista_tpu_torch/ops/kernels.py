@@ -1,9 +1,14 @@
 """Device kernel entry points used by operator dispatch.
 
-hash_aggregate runs a HashAggregateExec's partial phase as one fused device
-stage (ops/stage.py::FusedAggregateStage); resolve_stage builds or fetches
-that stage from a structural cache. A stage that cannot lower raises
-UnsupportedOnDevice with a reason: the dispatcher records the decline
+hash_aggregate runs a HashAggregateExec's partial phase as one device
+stage; resolve_stage builds or fetches that stage from a structural cache,
+trying the JAX package's ladder in its order (_build_stage): the fact-side
+pushdown (ops/factagg.py::FactAggregateStage), a mapped-scan rewrite whose
+fused top-k is live when the fact stage cannot fuse its epilogue, the
+mapped-scan rewrite (ops/mappedscan.py), and the fused stage over the
+aggregate's own input (ops/stage.py::FusedAggregateStage). A rung that
+steps aside counts its reason (step_aside) and the next rung is tried; only
+the ladder's final verdict is a decline: the dispatcher records it
 (runtime.record_route("host", reason)) and returns None, and the operator
 runs its host Arrow path, which gives the same answer.
 """
@@ -28,6 +33,58 @@ def host_fallback(reason: str) -> None:
     tracing.incr("device.host_fallback")
     logging.getLogger("ballista.cuda").debug("host fallback: %s", reason)
     return None
+
+
+def step_aside(reason: str) -> None:
+    """Canonical mid-ladder decline: one rung steps aside and the next is
+    tried, so the aggregate may still run on the device. Its reason is
+    counted apart from host declines (runtime.routing_stats()
+    ["step_asides"])."""
+    from ballista_tpu_torch.ops.runtime import record_step_aside
+    from ballista_tpu_torch.utils import tracing
+
+    tracing.incr("device.step_aside")
+    logging.getLogger("ballista.cuda").debug("ladder step-aside: %s", reason)
+    record_step_aside(reason)
+    return None
+
+
+def _build_stage(exec_node):
+    """The stage ladder (ballista_tpu/ops/kernels.py:324-361, in its
+    order). Raises UnsupportedOnDevice with the final verdict."""
+    from ballista_tpu_torch.ops.factagg import FactAggregateStage
+    from ballista_tpu_torch.ops.mappedscan import try_rewrite_mapped
+    from ballista_tpu_torch.ops.stage import FusedAggregateStage
+
+    # aggregate over a join: the fact-side pushdown first
+    built = FactAggregateStage.try_build(exec_node)
+    if (
+        built is not None
+        and built.topk is None
+        and getattr(exec_node, "_topk_pushdown", None) is not None
+    ):
+        # the fact stage admitted the shape but cannot fuse its epilogue
+        # (dim-only grouping, q10: output groups are not fact keys). A
+        # mapped rewrite groups by the OUTPUT keys, so the fused stage's
+        # top-k applies: prefer it when its spec is live (O(limit) readback)
+        rewritten = try_rewrite_mapped(exec_node)
+        if rewritten is not None:
+            try:
+                alt = FusedAggregateStage(rewritten)
+            except UnsupportedOnDevice as e:
+                step_aside(f"mapped top-k rewrite: {e}")
+            else:
+                if alt.topk is not None:
+                    built = alt
+    if built is None:
+        # shapes the fact stage excludes (multi-key fact joins, dim-valued
+        # aggregate inputs, fact-column group keys: q7-q9, q12)
+        rewritten = try_rewrite_mapped(exec_node)
+        if rewritten is not None:
+            built = FusedAggregateStage(rewritten)
+    if built is None:
+        built = FusedAggregateStage(exec_node)
+    return built
 
 
 # executor task threads run concurrently: lookup/insert are one atomic
@@ -55,10 +112,9 @@ def clear_stage_cache() -> None:
 
 
 def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
-    """Build-or-fetch the fused device stage for one aggregate node without
+    """Build-or-fetch the device stage for one aggregate node without
     running it. Returns (stage, key): `stage` is False when the shape
     permanently declined to the host path (cached verdict included)."""
-    from ballista_tpu_torch.ops.stage import FusedAggregateStage
     from ballista_tpu_torch.physical.scan import MemoryScanExec
 
     def leaves(node):
@@ -108,7 +164,7 @@ def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
     if stage is None:
         # build OUTSIDE the lock; first insert wins on a racing build
         try:
-            built = FusedAggregateStage(exec_node)
+            built = _build_stage(exec_node)
         except UnsupportedOnDevice as e:
             record_route("host", f"stage build: {e}")
             built = False

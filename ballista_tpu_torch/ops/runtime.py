@@ -180,7 +180,8 @@ def release_stage_residency(stage) -> None:
     global _resident_bytes
     with _res_lock:
         stage._retired = True
-        cache = getattr(stage, "_device_cache", None)
+        # fused stages pin into _device_cache, fact stages into _prepared
+        cache = getattr(stage, "_device_cache", None) or getattr(stage, "_prepared", None)
         if cache:
             for p in list(cache):
                 _resident_bytes -= _reservations.pop((id(stage), p), 0)
@@ -499,17 +500,23 @@ def readback_stats(reset: bool = False) -> Dict[str, int]:
     return out
 
 
-# which route each fused-stage run took: "batches", "sorted" (the
+# which route each device-stage run took: "batches", "sorted" (the
 # chunked-segment layout), "pallas_sorted" (the sorted_grouped_sum kernel
-# route; the names are the JAX package's), or "host" (the stage declined,
-# with its reason counted). A stage that declines still returns the right
-# answer through the host operator, so these counts are how a run proves
-# where its aggregates ran. Named events (e.g. "skew_replan": the top-k
-# prepare split dominant groups off its one-chunk cover) count beside them.
+# route; the names are the JAX package's), "fact_topk" / "fact_select" /
+# "fact_secondary" (the fact-aggregate stage's three modes, ops/factagg.py),
+# or "host" (the stage declined, with its reason counted). A stage that
+# declines still returns the right answer through the host operator, so
+# these counts are how a run proves where its aggregates ran. Named events
+# (e.g. "skew_replan": the top-k prepare split dominant groups off its
+# one-chunk cover; "mapped_rewrite": a join tree ran as a mapped fact scan)
+# count beside them. A rung of the stage ladder that steps aside
+# (kernels.step_aside) counts its reason apart from host declines: the next
+# rung may still run the aggregate on the device.
 _routing_lock = threading.Lock()
 _routes: Dict[str, int] = {}  # guarded-by: _routing_lock
 _decline_reasons: Dict[str, int] = {}  # guarded-by: _routing_lock
 _routing_events: Dict[str, int] = {}  # guarded-by: _routing_lock
+_step_asides: Dict[str, int] = {}  # guarded-by: _routing_lock
 
 
 def record_route(route: str, reason: Optional[str] = None) -> None:
@@ -524,14 +531,21 @@ def record_routing_event(event: str) -> None:
         _routing_events[event] = _routing_events.get(event, 0) + 1
 
 
+def record_step_aside(reason: str) -> None:
+    with _routing_lock:
+        _step_asides[reason] = _step_asides.get(reason, 0) + 1
+
+
 def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
     """{"routes": {route: n}, "reasons": {decline reason: n},
-    "events": {event: n}}"""
+    "events": {event: n}, "step_asides": {step-aside reason: n}}"""
     with _routing_lock:
         out = {"routes": dict(_routes), "reasons": dict(_decline_reasons),
-               "events": dict(_routing_events)}
+               "events": dict(_routing_events),
+               "step_asides": dict(_step_asides)}
         if reset:
             _routes.clear()
             _decline_reasons.clear()
             _routing_events.clear()
+            _step_asides.clear()
     return out

@@ -31,8 +31,12 @@ route:
   on the host and summed per group by the hand-written CUDA kernel
   ``sorted_grouped_sum`` (ops/cuda_kernels.py, csrc/sorted_grouped_sum.cu).
 
-Not ported yet: the persisted layout cache (ops/layout_cache.py) and the
-fact-aggregate hooks of the "sorted" route.
+The "sorted" route also serves composers: the fact-aggregate stage
+(ops/factagg.py) sets ``sorted_cover_max`` and ``derive_columns`` and runs
+``sorted_step`` inside its own device steps, and the mapped-scan rewrite
+(ops/mappedscan.py) hands this stage a join tree as one row source.
+
+Not ported yet: the persisted layout cache (ops/layout_cache.py).
 
 Readback: the "batches" route reads int32 and float32 state rows back as two
 transfers per run; the "sorted" route and the top-k epilogue read one int32
@@ -44,7 +48,7 @@ here).
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -60,6 +64,7 @@ from ballista_tpu_torch.ops.runtime import (
     pad_to,
     readback,
     record_route,
+    record_routing_event,
     upload,
     widen_cols,
 )
@@ -456,6 +461,18 @@ class FusedAggregateStage:
         # the torch.device this stage's tensors live on (set on first run;
         # the stage cache key includes the device)
         self.device = None
+        # composer hooks (ops/factagg.py). sorted_cover_max: the sorted
+        # prepare skips "pallas_sorted" and the top-k cover and widens L1 to
+        # the longest group run, so chunk partials ARE group partials.
+        # derive_columns: name -> fn(row-space lowered columns) -> per-row
+        # array, materialized as extra [V, L1] tiles in entry["derived"].
+        self.sorted_cover_max = False
+        self.derive_columns: Dict[str, Callable] = {}
+        from ballista_tpu_torch.ops.mappedscan import MappedScanExec
+
+        # a join tree rewritten to a mapped fact scan (ops/mappedscan.py):
+        # each run also counts the "mapped_rewrite" routing event
+        self.mapped = isinstance(node, MappedScanExec)
 
     @staticmethod
     def _partial_schema(agg) -> pa.Schema:
@@ -658,13 +675,14 @@ class FusedAggregateStage:
         return rows
 
     # -- "sorted" route: the chunked-segment layout step -----------------
-    def _sorted_step(self, L1: int, cols, aux, clen):
+    def sorted_step(self, L1: int, cols, aux, clen):
         """The JAX package's _sorted_core: elementwise expressions over the
         [V, L1] tiles, then axis-1 reductions to per-chunk partials, O(N)
         for any group count. The valid-slot mask expands on the device from
         the per-chunk lengths. Returns the logical rows of _plan_outputs,
         each [V]: int32 (sums exact under _check_int_ranges against L1) or
-        f32."""
+        f32. Public: the fact-aggregate steps (ops/factagg.py) compose
+        with it."""
         import torch
 
         cols = widen_cols(cols)
@@ -966,6 +984,9 @@ class FusedAggregateStage:
             and all(a.fn in ("sum", "count", "avg") for a in self.aggs)
             and not any(self.int_exact)
             and self.topk is None
+            # fact stages consume [V, L1] tiles and rank metadata the
+            # kernel's flat entry does not carry
+            and not self.sorted_cover_max
         )
 
     # holds-lock: self._prepare_lock
@@ -978,7 +999,7 @@ class FusedAggregateStage:
         import time as _time
 
         from ballista_tpu_torch.ops.layout import SortedSegmentLayout
-        from ballista_tpu_torch.ops.runtime import record_ingest, record_routing_event
+        from ballista_tpu_torch.ops.runtime import record_ingest
 
         t_wall0 = _time.perf_counter()
         batches = [b for b in self._scan_batches(partition, ctx) if b.num_rows]
@@ -998,7 +1019,7 @@ class FusedAggregateStage:
             record_ingest(scan_s, t_end - t_wall0 - scan_s, 0.0, t_end - t_wall0)
             return out
         layout = None
-        if self.topk is not None:
+        if self.topk is not None and not self.sorted_cover_max:
             # fused top-k wants the one-chunk-per-group cover: the chunk
             # fold becomes identity, so the gathered k columns are the
             # values the full readback would emit. The int range check runs
@@ -1032,11 +1053,16 @@ class FusedAggregateStage:
         else:
             # layout first, codes freed, then lower: the host-memory peak
             # holds the take-index or the row-space columns, not both
-            layout = SortedSegmentLayout(codes, n_groups)
+            layout = SortedSegmentLayout(
+                codes, n_groups, cover_max=self.sorted_cover_max
+            )
             del codes
             npcols = self._lower_columns(batch)
             self._check_int_ranges(npcols, layout.L1)
         del batch
+        # derived columns read the row-space columns: computed before the
+        # staging loop below frees them
+        derived_raw = {name: fn(npcols) for name, fn in self.derive_columns.items()}
         # narrow and materialize one column at a time: the peak holds one
         # column in row space beside the tiles
         staged: Dict[int, tuple] = {}
@@ -1049,17 +1075,31 @@ class FusedAggregateStage:
             del narrow
             staged[idx] = (tiles, lut, choice)
             total += tiles.nbytes + (0 if lut is None else lut.nbytes)
+        staged_derived: Dict[str, tuple] = {}
+        for name in list(derived_raw):
+            raw = derived_raw.pop(name)
+            key = choice = None
+            if raw.dtype == np.int32:
+                # int-only narrowing: derived tiles are step arguments of
+                # their own (not widen_cols inputs), widened by a plain cast
+                key = f"derived:{name}"
+                raw, _lut, choice = narrow_column(raw, self._narrow_choice.get(key))
+            tiles = layout.materialize(raw)
+            del raw
+            staged_derived[name] = (tiles, key, choice)
+            total += tiles.nbytes
         # the take-index served every materialize
         layout.row_take = None
         t_up0 = _time.perf_counter()
-        out = self._finish_sorted(ctx, layout, staged, key_values, total)
+        out = self._finish_sorted(ctx, layout, staged, key_values, total, staged_derived)
         t_end = _time.perf_counter()
         record_ingest(scan_s, t_up0 - t_wall0 - scan_s, t_end - t_up0, t_end - t_wall0)
         return out
 
-    def _finish_sorted(self, ctx, layout, staged: Dict, key_values, total: int) -> dict:
-        """Budget check, then the h2d upload of the staged tiles (recording
-        each column's narrow choice) and the "sorted" entry."""
+    def _finish_sorted(self, ctx, layout, staged: Dict, key_values, total: int,
+                       staged_derived: Dict) -> dict:
+        """Budget check, then the h2d upload of the staged tiles and derived
+        tiles (recording each narrow choice) and the "sorted" entry."""
         check_budget(total, ctx.config.tpu_hbm_budget(), "stage tiles")
         dev = self.device
         cols: Dict = {}
@@ -1068,6 +1108,12 @@ class FusedAggregateStage:
             self._narrow_choice[idx] = choice
             col = upload(tiles, dev)
             cols[idx] = col if lut is None else (col, upload(lut, dev))
+        derived: Dict = {}
+        for name in list(staged_derived):
+            tiles, key, choice = staged_derived.pop(name)
+            if key is not None:
+                self._narrow_choice[key] = choice
+            derived[name] = upload(tiles, dev)
         return {
             "kind": "sorted",
             "layout": layout,
@@ -1075,6 +1121,7 @@ class FusedAggregateStage:
             "clen": upload(layout.clen, dev),
             "key_values": key_values,
             "n_groups": layout.n_groups,
+            "derived": derived,
         }
 
     def _prepare_pallas_sorted(self, batch, codes, key_values, n_groups, ctx) -> dict:
@@ -1144,12 +1191,10 @@ class FusedAggregateStage:
         )
 
     # ------------------------------------------------------------------
-    def run(self, partition: int, ctx) -> pa.Table:
-        from ballista_tpu_torch.ops.runtime import (
-            entry_device_bytes,
-            reserve_and_pin,
-        )
-
+    def bind_device(self, ctx) -> None:
+        """Pin the stage to the task's torch.device on its first run; a
+        context without a device, or another device later, is an error
+        (never a silent run on the CPU)."""
         if ctx.device is None:
             raise RuntimeError(
                 "device stage run without a device: the TaskContext of the "
@@ -1162,6 +1207,14 @@ class FusedAggregateStage:
             raise RuntimeError(
                 f"stage prepared on {self.device} was run on {ctx.device}"
             )
+
+    def run(self, partition: int, ctx) -> pa.Table:
+        from ballista_tpu_torch.ops.runtime import (
+            entry_device_bytes,
+            reserve_and_pin,
+        )
+
+        self.bind_device(ctx)
         use_cache = ctx.config.device_cache() and self.cacheable
         if not self.cacheable and not ctx.config.tpu_fuse_volatile():
             # aggregating over a re-executed source (e.g. a host join) pays
@@ -1194,6 +1247,8 @@ class FusedAggregateStage:
                             entry_device_bytes(prepared),
                             ctx.config.tpu_hbm_budget(),
                         )
+        if self.mapped:
+            record_routing_event("mapped_rewrite")
         return self.execute_prepared(prepared, self.device)
 
     def execute_prepared(self, prepared: dict, device) -> pa.Table:
@@ -1320,7 +1375,7 @@ class FusedAggregateStage:
         folded to groups on the host."""
         layout = ent["layout"]
         rows = self._unpack_rows(readback(self._pack_rows(
-            self._sorted_step(layout.L1, ent["cols"], aux, ent["clen"])
+            self.sorted_step(layout.L1, ent["cols"], aux, ent["clen"])
         )))
         counts = layout.fold_sum(rows[0])
         outputs = self._fold_state_rows(layout, rows)
@@ -1404,7 +1459,7 @@ class FusedAggregateStage:
         import torch
 
         layout = ent["layout"]
-        rows = self._sorted_step(layout.L1, ent["cols"], aux, ent["clen"])
+        rows = self.sorted_step(layout.L1, ent["cols"], aux, ent["clen"])
         if layout.one_chunk_per_group:
             return self._topk_select(rows[0], lambda r: rows[r], self._pack_rows(rows))
         owner = ent.get("owner_dev")

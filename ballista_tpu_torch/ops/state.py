@@ -12,7 +12,9 @@ on exactly the state the reference prepared:
         "cols": {idx: array | (codes, lut)}, "codes", "row_valid",
         "key_values"}, ...]}
     {"kind": "sorted", "layout", "cols": {idx: [V, L1] tiles | (tiles, lut)},
-        "clen", "key_values", "n_groups"}
+        "clen", "key_values", "n_groups", "derived": {name: [V, L1] tiles}}
+        plus, for a fact-aggregate stage's entry (ops/factagg.py),
+        "rank_keys" and "rank_order" (host arrays)
     {"kind": "pallas_sorted", "codes", "cols", "row_valid", "key_values",
         "n_groups"}
     {"kind": "empty"}
@@ -21,9 +23,11 @@ Arrays become tensors on `device`; (codes, lut) pairs stay pairs (the LUT
 encoding widen_cols understands); Arrow key values and counts pass through.
 A "sorted" entry's layout is rebuilt with SortedSegmentLayout.from_state
 from what the reference layout exposes (``state()``, ``owner``, ``clen``),
-so no object of the reference package crosses. Its fact-aggregate tiles
-("derived") are not ported: an entry that carries any is refused.
-String predicates compare dictionary codes, so a stage whose filters test
+so no object of the reference package crosses. A fact-aggregate stage's
+entry (the JAX FactAggregateStage's ``_prepared[partition]``) carries its
+derived tiles (q5's per-row secondary attribute) and its rank keys too, so
+the port's fact steps can run on what the reference prepared. String
+predicates compare dictionary codes, so a stage whose filters test
 strings needs the reference stage's dictionaries too; this helper carries
 only the prepared entry.
 """
@@ -58,20 +62,31 @@ def prepared_from_reference(entry: dict, device) -> dict:
     if kind == "empty":
         return {"kind": "empty"}
     if kind == "sorted":
-        if entry.get("derived"):
-            raise ValueError("cannot carry a sorted entry with derived tiles")
         ref = entry["layout"]
         layout = SortedSegmentLayout.from_state(
             ref.state(), np.asarray(ref.owner), np.asarray(ref.clen)
         )
-        return {
+        derived = entry.get("derived") or {}
+        for name, tiles in derived.items():
+            # derived tiles ride the layout's [V, L1] grid, like the columns
+            if np.shape(tiles) != (layout.V, layout.L1):
+                raise ValueError(
+                    f"derived tiles {name!r} of shape {np.shape(tiles)} do not "
+                    f"match the layout's [{layout.V}, {layout.L1}]"
+                )
+        out = {
             "kind": kind,
             "layout": layout,
             "cols": _tensors(entry["cols"], device),
             "clen": upload(layout.clen, device),
             "key_values": entry["key_values"],
             "n_groups": int(entry["n_groups"]),
+            "derived": _tensors(derived, device),
         }
+        for name in ("rank_keys", "rank_order"):
+            if name in entry:
+                out[name] = np.asarray(entry[name])
+        return out
     if kind == "pallas_sorted":
         return {
             "kind": kind,

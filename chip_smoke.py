@@ -40,6 +40,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ~98 % of rows kept, G = 4 for contention and G = 128 for the cap) are
    checked and timed like phase 4.
 
+6. joins: TPC-H aggregates over joins at --sf, each through the package's
+   stage ladder (ops/kernels.py) on the "cuda" backend, the stage cache
+   emptied before each query: q3 (FactAggregateStage, "fact_topk"), q5
+   ("fact_secondary"), q18 ("fact_select" over a "sorted" inner aggregate),
+   and q4, q7, q8, q9, q10, q12, q14, q19 (FusedAggregateStage over a
+   MappedScanExec, "batches" or "sorted", the "mapped_rewrite" event). Each
+   query must take its stage and route with no host route and no decline
+   reason; q10's fused top-k must read back exactly 20 rows per stage
+   partition per run (a boundary-tie fallback fails the phase and says so);
+   q3's fact step must read back at most its candidate pool per fact
+   partition, fewer than its groups. Answers are held against the "cpu"
+   backend under the tolerance of phase 3. Prints cold and warm (median of
+   5) milliseconds, readbacks, the host prepare and the host dim side
+   (`dim_ms`: the spans factagg.dim_side, factagg.secondary_side and
+   mappedscan.dim_maps) per query, and the device time inside one more
+   warm run (torch.profiler, `warm_device_ms`) with the warm median's idle
+   share. Launch counters are 0 when it starts;
+   neither kernel is on this path, and their counts are printed.
+
 With --compare-sources DIR, phases 4 and 5 also build the kernel sources
 in DIR (PR 2's C interface, e.g. unpacked with `git show`) and time them on
 the same inputs in turns (previous, current, current, previous):
@@ -96,6 +115,24 @@ TOPK_REVENUE = (
 # read back and the host Sort+Limit picks the rows
 TOPK_REVENUE_UNFUSED = TOPK_REVENUE.replace("order by revenue desc", "order by revenue + 0 desc")
 PALLAS = {"ballista.tpu.sorted_kernel": "pallas"}
+# name, stage ("fact" or "mapped"), routes the cold run must record (None:
+# "batches" or "sorted", whichever the group count picks)
+JOIN_QUERIES = [
+    ("q3", "fact", ("fact_topk",)),
+    ("q4", "mapped", ("batches",)),
+    ("q5", "fact", ("fact_secondary",)),
+    ("q7", "mapped", ("sorted",)),
+    ("q8", "mapped", None),
+    ("q9", "mapped", None),
+    ("q10", "mapped", ("sorted",)),
+    ("q12", "mapped", ("batches",)),
+    ("q14", "mapped", ("batches",)),
+    ("q18", "fact", ("fact_select", "sorted")),
+    ("q19", "mapped", None),
+]
+Q10_K = 20
+# host spans of the join stages' dim sides (ops/factagg.py, ops/mappedscan.py)
+DIM_SPANS = ("factagg.dim_side", "factagg.secondary_side", "mappedscan.dim_maps")
 
 
 def fail(msg: str) -> None:
@@ -377,6 +414,143 @@ def phase_path(sf: float, seed: int, data_dir: str):
     return times, launches
 
 
+def _join_stage(name: str, kind: str, routes: dict):
+    """The query's device stage from the stage cache (emptied before the
+    query): a FactAggregateStage for "fact", a FusedAggregateStage over a
+    MappedScanExec for "mapped"."""
+    from ballista_tpu_torch.ops import kernels
+    from ballista_tpu_torch.ops.factagg import FactAggregateStage
+    from ballista_tpu_torch.ops.mappedscan import MappedScanExec
+
+    built = [s for s in list(kernels._stage_cache.values()) if s not in (None, False)]
+    if kind == "fact":
+        found = [s for s in built if isinstance(s, FactAggregateStage)]
+    else:
+        found = [s for s in built if isinstance(getattr(s, "scan", None), MappedScanExec)]
+        if routes["events"].get("mapped_rewrite", 0) < 1:
+            fail(f"{name}: no mapped_rewrite event recorded: {routes}")
+    if len(found) != 1:
+        fail(f"{name}: expected one {kind} stage, found {[type(s).__name__ for s in built]}")
+    return found[0]
+
+
+def _join_readback_rules(name: str, stage, routes: dict, reads: dict, runs: int) -> dict:
+    """q10: exactly Q10_K rows per stage partition per run; q3: at most the
+    candidate pool per fact partition per run, fewer than the groups. `runs`
+    queries recorded `routes` and `reads`. Returns what was checked."""
+    if name == "q10":
+        n = routes["routes"].get("sorted", 0)  # stage partitions x runs
+        if stage.topk is None:
+            fail("q10: the mapped stage's fused top-k is not live")
+        if n < runs or reads["rows"] != Q10_K * n or reads["readbacks"] != n:
+            fail(f"q10: {n} stage partition run(s) read back {reads['rows']} rows "
+                 f"in {reads['readbacks']} readbacks, not {Q10_K} rows in one "
+                 f"each: the fused top-k fell back (boundary tie) or did not run")
+        return {"stage_partitions": n // runs, "rows_per_partition": Q10_K}
+    if name == "q3":
+        n = routes["routes"].get("fact_topk", 0)  # fact partitions x runs
+        groups = [e["n_groups"] for e in stage._prepared.values() if e["kind"] == "sorted"]
+        if not groups or len(groups) * runs != n:
+            fail(f"q3: {n} fact run(s) over {runs} query run(s) but "
+                 f"{len(groups)} resident fact partition(s)")
+        pool = sum(stage.pool_size(g) for g in groups)
+        if reads["readbacks"] != n or reads["rows"] > pool * runs:
+            fail(f"q3: read back {reads['rows']} rows in {reads['readbacks']} "
+                 f"readbacks, more than the pool of {pool} per run")
+        if pool >= sum(groups):
+            fail(f"q3: the pool ({pool}) is not smaller than the groups ({sum(groups)})")
+        return {"fact_partitions": len(groups), "pool": pool, "groups": sum(groups)}
+    return {}
+
+
+def phase_joins(data_dir: str):
+    """Phase 6 (see the module docstring), over phase 3's data."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import ExecutionContext
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.utils import tracing
+
+    base = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": ""}
+    host_ctx = ExecutionContext(BallistaConfig({**base, "ballista.executor.backend": "cpu"}))
+    register_all(host_ctx, data_dir)
+    times = {}
+    # this path's launches: every counter starts at 0 here
+    cuda_kernels.reset_launch_counts()
+    for name, kind, want_routes in JOIN_QUERIES:
+        sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+        kernels.clear_stage_cache()
+        ctx = ExecutionContext(BallistaConfig(base))
+        register_all(ctx, data_dir)
+        runtime.routing_stats(reset=True)
+        runtime.readback_stats(reset=True)
+        runtime.ingest_stats(reset=True)
+        tracing.reset()
+        t0 = time.perf_counter()
+        got = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        routes = runtime.routing_stats()
+        reads = runtime.readback_stats(reset=True)
+        ingest = runtime.ingest_stats()
+        dim_ms = sum(dt for path, dt, _ in tracing.spans()
+                     if path.split("/")[-1] in DIM_SPANS) * 1e3
+        if routes["routes"].get("host") or routes["reasons"]:
+            fail(f"{name}: a stage declined to the host: {routes}")
+        for route in want_routes or ():
+            if routes["routes"].get(route, 0) < 1:
+                fail(f"{name}: expected route {route!r}, recorded {routes['routes']}")
+        if want_routes is None and not (set(routes["routes"]) & {"batches", "sorted"}):
+            fail(f"{name}: no batches or sorted route recorded: {routes['routes']}")
+        stage = _join_stage(name, kind, routes)
+        checked = _join_readback_rules(name, stage, routes, reads, 1)
+        warm = []
+        runtime.routing_stats(reset=True)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            again = ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        warm_routes = runtime.routing_stats(reset=True)
+        warm_reads = runtime.readback_stats(reset=True)
+        if warm_routes["routes"].get("host") or warm_routes["reasons"]:
+            fail(f"{name}: a warm run declined to the host: {warm_routes}")
+        _join_readback_rules(name, stage, warm_routes, warm_reads, 5)
+        busy_ms = _device_busy_ms(lambda: ctx.sql(sql).collect())
+        runtime.routing_stats(reset=True)
+        runtime.readback_stats(reset=True)
+        expect = host_ctx.sql(sql).collect()
+        _compare(name, got, expect)
+        _compare(name + " (warm)", again, expect)
+        times[name] = {
+            "stage": type(stage).__name__ if kind == "fact" else "FusedAggregateStage/MappedScanExec",
+            "routes": routes["routes"], "events": routes["events"],
+            "rows": got.num_rows, "cold_ms": cold_ms,
+            "warm_ms": statistics.median(warm), "warm_runs_ms": warm,
+            "readbacks": reads["readbacks"], "readback_rows": reads["rows"],
+            "readback_bytes": reads["bytes"],
+            "warm_readback_rows_per_run": warm_reads["rows"] / 5,
+            # the cold run's host prepare of the fact scan (scan, encode,
+            # upload, wall) and the host dim side
+            "prepare_ms": {k: ingest[k] * 1e3 for k in
+                           ("scan_s", "encode_s", "upload_s", "wall_s")},
+            "dim_ms": dim_ms,
+            # device time inside one more warm run (torch.profiler), and
+            # the share of the warm median the card was idle
+            "warm_device_ms": busy_ms,
+            "warm_idle_share": ("not measured" if busy_ms == "not measured"
+                                else 1.0 - busy_ms / statistics.median(warm)),
+            **checked,
+        }
+        log(f"{name}: {times[name]}")
+    launches = cuda_kernels.launch_counts()
+    kernels.clear_stage_cache()
+    return times, launches
+
+
 def _captured_kernel_inputs():
     """(name, codes, values, num_groups) of every sorted_grouped_sum call the
     path made, rebuilt from the resident stage entries."""
@@ -517,6 +691,28 @@ def _device_ms(fn, kernel_names, reps: int = TIME_REPS):
             total_us += float(getattr(ev, "device_time_total", None)
                               or getattr(ev, "cuda_time_total", 0.0) or 0.0)
     return total_us / reps / 1e3 if total_us > 0 else "not measured"
+
+
+def _device_busy_ms(fn):
+    """Device milliseconds inside one call of fn: the union of the intervals
+    of every kernel and copy torch.profiler records on the card ("not
+    measured" when it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy_us, end_us = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end_us:
+            busy_us += stop - max(start, end_us)
+            end_us = stop
+    return busy_us / 1e3 if busy_us > 0 else "not measured"
 
 
 def _previous_fields(prev, prev_ms, turns) -> dict:
@@ -793,9 +989,14 @@ def main() -> int:
                                 previous.get("sorted_grouped_sum"))
         kernels.append(phase_grouped_aggregate(args.seed, launches,
                                                previous.get("grouped_aggregate")))
+        join_times, join_launches = phase_joins(data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    print(json.dumps({"queries": times, "build_s": build_s, "sf": args.sf}))
+    for k in kernels:
+        k["launches_by_path"] = {"aggregates": k["launches"],
+                                 "joins": join_launches[k["name"]]}
+    print(json.dumps({"queries": times, "joins": join_times, "build_s": build_s,
+                      "sf": args.sf}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

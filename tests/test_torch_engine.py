@@ -204,6 +204,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import ballista_tpu_torch, ballista_tpu_torch.engine\n"
         "import ballista_tpu_torch.ops.stage, ballista_tpu_torch.ops.kernels\n"
         "import ballista_tpu_torch.ops.cuda_kernels, ballista_tpu_torch.ops.state\n"
+        "import ballista_tpu_torch.ops.factagg, ballista_tpu_torch.ops.mappedscan\n"
         "import ballista_tpu_torch.physical.planner, ballista_tpu_torch.sql.planner\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ballista_tpu' or m.startswith('ballista_tpu.')]\n"

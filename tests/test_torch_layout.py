@@ -343,6 +343,8 @@ def test_sorted_entry_from_reference(tmp_path):
 
 
 def test_sorted_entry_with_derived_tiles_is_refused():
+    """Derived tiles (a fact-aggregate stage's per-row extra columns) are
+    carried only on the layout's [V, L1] grid; any other shape is refused."""
     from ballista_tpu_torch.ops.state import prepared_from_reference
 
     codes, g = _codes("uniform")

@@ -1,0 +1,340 @@
+"""The port's mapped fact scan (ballista_tpu_torch/ops/mappedscan.py) and the
+stage ladder of ops/kernels.py against the JAX package's, on the same data:
+the cases of tests/test_mappedscan.py, each run through the JAX "tpu"
+backend (CPU JAX) and the port's "cuda" backend on CPU tensors
+(device="cpu"). Both packages must build the same stages (a
+FusedAggregateStage over a MappedScanExec, with the same "batches" /
+"sorted" kind) or decline alike.
+
+Tolerances (tests/test_mappedscan.py's own): non-float columns equal;
+floats within rtol 1e-4 (rtol 1e-3 on TPC-H, :258). The hand oracles of the
+reference tests are kept where they have one.
+"""
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+
+from ballista_tpu.config import BallistaConfig as JaxConfig
+from ballista_tpu.engine import ExecutionContext as JaxContext
+from ballista_tpu_torch.config import BallistaConfig
+from ballista_tpu_torch.engine import ExecutionContext
+
+
+def _fresh():
+    from ballista_tpu.ops import kernels as jk
+    from ballista_tpu.ops import runtime as jr
+    from ballista_tpu_torch.ops import kernels as tk
+    from ballista_tpu_torch.ops import runtime as tr
+
+    jk._stage_cache.clear()
+    jk._stage_cache_pins.clear()
+    jk._stage_latest.clear()
+    jr.reset_residency()
+    tk.clear_stage_cache()
+    tr.readback_stats(reset=True)
+    tr.routing_stats(reset=True)
+
+
+def _stages(cache):
+    """Sorted descriptions of a stage cache's built stages: ("fact", mode)
+    or (row source type, prepared kinds, fused top-k live)."""
+    out = []
+    for s in cache.values():
+        if s in (None, False):
+            continue
+        if type(s).__name__ == "FactAggregateStage":
+            mode = ("secondary" if s.secondary is not None
+                    else "topk" if s.topk is not None else "select")
+            out.append(("fact", mode))
+        else:
+            kinds = tuple(sorted({e.get("kind") for e in s._device_cache.values()}))
+            out.append((type(s.scan).__name__, kinds, s.topk is not None))
+    return sorted(out)
+
+
+def _run_both(paths, sql):
+    """(JAX result, JAX stages, port result, port stages, port routing)."""
+    from ballista_tpu.ops import kernels as jk
+    from ballista_tpu_torch.ops import kernels as tk
+    from ballista_tpu_torch.ops import runtime as tr
+
+    _fresh()
+    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    pctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cuda"}),
+                            device="cpu")
+    for name, p in paths.items():
+        jctx.register_parquet(name, p)
+        pctx.register_parquet(name, p)
+    jout = jctx.sql(sql).collect()
+    pout = pctx.sql(sql).collect()
+    return (jout, _stages(jk._stage_cache), pout, _stages(tk._stage_cache),
+            tr.routing_stats(reset=True))
+
+
+def _assert_same(jout, pout, rtol):
+    assert pout.column_names == jout.column_names
+    assert pout.num_rows == jout.num_rows
+    for name, f in zip(jout.column_names, jout.schema):
+        j, p = jout.column(name).to_pylist(), pout.column(name).to_pylist()
+        if pa.types.is_floating(f.type):
+            np.testing.assert_allclose(np.array(p, dtype=float), np.array(j, dtype=float),
+                                       rtol=rtol, err_msg=name)
+        else:
+            assert p == j, name
+
+
+def _write(tmp_path, name, table):
+    p = tmp_path / f"{name}.parquet"
+    pq.write_table(table, str(p))
+    return str(p)
+
+
+def _star(tmp_path, n_fact=30_000, n_dim=800, missing=50, seed=7):
+    """tests/test_mappedscan.py's star: `missing` fact keys have no dim row,
+    and a second-level dim is keyed on a dim column."""
+    rng = np.random.default_rng(seed)
+    fact = pa.table({
+        "fk": pa.array(rng.integers(0, n_dim + missing, n_fact), type=pa.int64()),
+        "mode": pa.array([f"m{i % 5}" for i in range(n_fact)]),
+        "amount": pa.array(rng.uniform(0, 100, n_fact)),
+    })
+    dim = pa.table({
+        "dk": pa.array(np.arange(n_dim), type=pa.int64()),
+        "prio": pa.array([f"p{i % 3}" for i in range(n_dim)]),
+        "regionkey": pa.array(np.arange(n_dim, dtype=np.int64) % 7),
+    })
+    region = pa.table({
+        "rk": pa.array(np.arange(7), type=pa.int64()),
+        "rname": pa.array([f"region-{i}" for i in range(7)]),
+    })
+    return (_write(tmp_path, "fact", fact), _write(tmp_path, "dim", dim),
+            _write(tmp_path, "region", region), fact)
+
+
+Q_DIM_VALUED = """
+    select mode,
+           sum(case when prio = 'p0' then 1 else 0 end) as c0,
+           sum(amount) as s
+    from dim, fact
+    where dk = fk
+    group by mode
+    order by mode
+"""
+
+Q_CHAINED = """
+    select rname, count(*) as c, sum(amount * (1 + regionkey)) as s
+    from dim, fact, region
+    where dk = fk and rk = regionkey
+    group by rname
+    order by rname
+"""
+
+MAPPED_BATCHES = [("MappedScanExec", ("batches",), False)]
+
+
+def test_dim_valued_aggregate_inputs(tmp_path):
+    """q12 shape: a fact-column group key and an aggregate over a dim
+    string."""
+    fp, dp, _rp, _ = _star(tmp_path)
+    jout, jst, pout, pst, routing = _run_both({"fact": fp, "dim": dp}, Q_DIM_VALUED)
+    assert pst == jst == MAPPED_BATCHES
+    assert routing["events"].get("mapped_rewrite") == 1
+    _assert_same(jout, pout, 1e-4)
+
+
+def test_chained_attachment_and_membership(tmp_path):
+    """q7 shape: a second dim keyed on a column the first dim attached;
+    fact rows with no dim match drop."""
+    fp, dp, rp, fact = _star(tmp_path)
+    jout, jst, pout, pst, _ = _run_both({"fact": fp, "dim": dp, "region": rp}, Q_CHAINED)
+    assert pst == jst == MAPPED_BATCHES
+    assert sum(pout.column("c").to_pylist()) < fact.num_rows
+    _assert_same(jout, pout, 1e-4)
+
+
+def test_composite_key_attachment(tmp_path):
+    """q9 shape: a dim unique on a two-column key; out-of-range second
+    components must not alias into other tuples."""
+    rng = np.random.default_rng(3)
+    n = 20_000
+    fact = pa.table({
+        "k1": pa.array(rng.integers(0, 40, n), type=pa.int64()),
+        "k2": pa.array(rng.integers(0, 30, n), type=pa.int64()),
+        "v": pa.array(rng.uniform(0, 10, n)),
+    })
+    rows = [(a, b) for a in range(40) for b in range(20)]
+    dim = pa.table({
+        "d1": pa.array([a for a, _ in rows], type=pa.int64()),
+        "d2": pa.array([b for _, b in rows], type=pa.int64()),
+        "cost": pa.array([float(a * 100 + b) for a, b in rows]),
+    })
+    paths = {"fact": _write(tmp_path, "fact", fact), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select k1, sum(v * cost) as sc from dim, fact "
+           "where d1 = k1 and d2 = k2 group by k1 order by k1")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst == MAPPED_BATCHES
+    _assert_same(jout, pout, 1e-4)
+
+
+def test_duplicate_dim_keys_decline_correctly(tmp_path):
+    """A non-unique dim key multiplies rows: both packages decline the
+    mapped stage at prepare, the port records it as a host route with the
+    reference's reason, and the host path gives the multiplied answer."""
+    fact = pa.table({
+        "fk": pa.array([1, 1, 2], type=pa.int64()),
+        "mode": pa.array(["a", "a", "b"]),
+        "amount": pa.array([1.0, 2.0, 4.0]),
+    })
+    dim = pa.table({"dk": pa.array([1, 1, 2], type=pa.int64()),
+                    "prio": pa.array(["p0", "p1", "p0"])})
+    paths = {"fact": _write(tmp_path, "fact", fact), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select mode, count(*) as c, sum(amount) as s from dim, fact "
+           "where dk = fk group by mode order by mode")
+    jout, jst, pout, pst, routing = _run_both(paths, sql)
+    assert pst == jst == []
+    assert routing["routes"].get("host") == 1
+    assert any("not unique" in r for r in routing["reasons"])
+    assert pout.column("c").to_pylist() == jout.column("c").to_pylist() == [4, 1]
+    assert pout.column("s").to_pylist() == jout.column("s").to_pylist()
+
+
+def test_null_fact_keys_drop(tmp_path):
+    fact = pa.table({
+        "fk": pa.array([1, None, 2, None], type=pa.int64()),
+        "mode": pa.array(["a", "a", "b", "b"]),
+        "amount": pa.array([1.0, 2.0, 4.0, 8.0]),
+    })
+    dim = pa.table({"dk": pa.array([1, 2], type=pa.int64()),
+                    "prio": pa.array(["p0", "p1"])})
+    paths = {"fact": _write(tmp_path, "fact", fact), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select mode, sum(amount) as s from dim, fact "
+           "where dk = fk group by mode order by mode")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst
+    assert pout.column("s").to_pylist() == jout.column("s").to_pylist() == [1.0, 4.0]
+
+
+def test_multifile_fact_as_build_side(tmp_path):
+    """A multi-file fact on the build side and a single-file dim probe: the
+    rewritten stage stripes every fact partition over the driven one."""
+    rng = np.random.default_rng(9)
+    fdir = tmp_path / "factdir"
+    fdir.mkdir()
+    total = 0
+    for p in range(3):
+        n = 5000 + p * 100
+        pq.write_table(pa.table({
+            "fk": pa.array(rng.integers(0, 200, n), type=pa.int64()),
+            "mode": pa.array([f"m{i % 4}" for i in range(n)]),
+            "amount": pa.array(rng.uniform(0, 10, n)),
+        }), str(fdir / f"part-{p}.parquet"))
+        total += n
+    dim = pa.table({"dk": pa.array(np.arange(200), type=pa.int64()),
+                    "prio": pa.array([f"p{i % 3}" for i in range(200)])})
+    paths = {"fact": str(fdir), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select mode, sum(case when prio = 'p1' then amount else 0 end) as s,"
+           " count(*) as c from fact, dim where fk = dk "
+           "group by mode order by mode")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst and pst and pst[0][0] == "MappedScanExec"
+    assert sum(pout.column("c").to_pylist()) == total
+    _assert_same(jout, pout, 1e-4)
+
+
+def test_float_min_equality_consumer_stays_exact(tmp_path):
+    """q2 shape: a decorrelated MIN(float) equality-joined back against the
+    source column; the device min must be the stored value bit for bit."""
+    rng = np.random.default_rng(21)
+    n, nk = 8000, 400
+    fact = pa.table({
+        "fk": pa.array(rng.integers(0, nk, n), type=pa.int64()),
+        "cost": pa.array(np.round(rng.uniform(1, 1000, n), 2)),
+    })
+    dim = pa.table({"dk": pa.array(np.arange(nk), type=pa.int64()),
+                    "attr": pa.array([f"a{i % 9}" for i in range(nk)])})
+    paths = {"fact": _write(tmp_path, "fact", fact), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select fk, cost from dim, fact where dk = fk and cost = ("
+           "  select min(cost) from dim d2, fact f2 "
+           "  where d2.dk = f2.fk and f2.fk = fact.fk"
+           ") order by fk")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst
+    assert pout.num_rows == jout.num_rows >= nk
+    assert pout.column("cost").to_pylist() == jout.column("cost").to_pylist()
+
+
+@pytest.mark.parametrize("op,expected,stages", [
+    ("in", [1.0 + 2.0 + 8.0], MAPPED_BATCHES),
+    # NOT IN keeps the null fact key's row in the anti-join output, and a
+    # null in a device column declines the stage in both packages
+    ("not in", [4.0 + 32.0], []),
+])
+def test_semi_and_anti_membership(tmp_path, op, expected, stages):
+    """q4 shape: IN becomes a membership-only attachment; duplicate and null
+    keys on the membership side are fine, null fact keys never match."""
+    fact = pa.table({
+        "fk": pa.array([1, 1, 2, 3, None, 5], type=pa.int64()),
+        "mode": pa.array(["a", "b", "a", "b", "a", "b"]),
+        "amount": pa.array([1.0, 2.0, 4.0, 8.0, 16.0, 32.0]),
+    })
+    sub = pa.table({"sk": pa.array([1, 1, 3, None], type=pa.int64()),
+                    "x": pa.array([0.0, 1.0, 2.0, 3.0])})
+    paths = {"fact": _write(tmp_path, "fact", fact), "sub": _write(tmp_path, "sub", sub)}
+    sql = ("select sum(amount) as s from fact "
+           f"where fk {op} (select sk from sub where sk is not null)")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst == stages
+    assert pout.column("s").to_pylist() == jout.column("s").to_pylist() == expected
+
+
+def test_composite_semi_keys_with_nulls(tmp_path):
+    """Composite EXISTS keys whose dim side has nulls in different rows:
+    tuples stay row-aligned, only (1, 10) matches."""
+    fact = pa.table({
+        "k1": pa.array([1, 3, 7], type=pa.int64()),
+        "k2": pa.array([10, 20, 30], type=pa.int64()),
+        "amount": pa.array([1.0, 2.0, 4.0]),
+    })
+    sub = pa.table({"s1": pa.array([1, None, 3], type=pa.int64()),
+                    "s2": pa.array([10, 20, None], type=pa.int64())})
+    paths = {"fact": _write(tmp_path, "fact", fact), "sub": _write(tmp_path, "sub", sub)}
+    sql = ("select sum(amount) as s from fact where exists ("
+           "  select 1 from sub where s1 = k1 and s2 = k2)")
+    jout, jst, pout, pst, _ = _run_both(paths, sql)
+    assert pst == jst
+    assert pout.column("s").to_pylist() == jout.column("s").to_pylist() == [1.0]
+
+
+def test_ladder_step_aside_is_not_a_host_route(tmp_path):
+    """The fact stage steps aside (the aggregate reads a dim column) and the
+    mapped rewrite runs the aggregate on the device: the run records the
+    "batches" route, the "mapped_rewrite" event and the step-aside reason,
+    and no host route and no decline reason."""
+    fp, dp, _rp, _ = _star(tmp_path)
+    _, _, _, pst, routing = _run_both({"fact": fp, "dim": dp}, Q_DIM_VALUED)
+    assert pst == MAPPED_BATCHES
+    assert routing["routes"] == {"batches": 1}
+    assert routing["reasons"] == {}
+    assert routing["events"] == {"factagg.step_aside": 1, "mapped_rewrite": 1}
+    assert routing["step_asides"] == {
+        "factagg admission: fact-side group key is not the join key": 1
+    }
+
+
+def test_ladder_final_verdict_is_the_only_host_route(tmp_path):
+    """A shape no rung takes (MIN over a fact string column): the fact stage
+    steps aside, the mapped rewrite's fused stage refuses the string input,
+    and the run records exactly one host route with that final reason."""
+    fp, dp, _rp, _ = _star(tmp_path)
+    sql = ("select prio, min(mode) as m, sum(amount) as s from dim, fact "
+           "where dk = fk group by prio order by prio")
+    jout, jst, pout, pst, routing = _run_both({"fact": fp, "dim": dp}, sql)
+    assert pst == jst == []
+    assert routing["routes"] == {"host": 1}
+    assert routing["reasons"] == {"stage build: string aggregate input": 1}
+    assert routing["step_asides"] == {
+        "factagg admission: string aggregate input": 1
+    }
+    _assert_same(jout, pout, 1e-4)
