@@ -12,6 +12,12 @@ from typing import Optional
 import pyarrow as pa
 
 
+def device_filter(batch: pa.RecordBatch, predicate, ctx) -> Optional[pa.RecordBatch]:
+    from ballista_tpu_torch.ops import kernels
+
+    return kernels.filter_batch(batch, predicate, ctx.device)
+
+
 def device_hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
     from ballista_tpu_torch.ops import kernels
 

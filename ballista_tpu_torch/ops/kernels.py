@@ -1,7 +1,8 @@
 """Device kernel entry points used by operator dispatch.
 
 hash_aggregate runs a HashAggregateExec's partial phase as one device
-stage; resolve_stage builds or fetches that stage from a structural cache,
+stage, after the COUNT-over-LEFT-join prescreen (ops/countjoin.py);
+resolve_stage builds or fetches that stage from a structural cache,
 trying the JAX package's ladder in its order (_build_stage): the fact-side
 pushdown (ops/factagg.py::FactAggregateStage), a mapped-scan rewrite whose
 fused top-k is live when the fact stage cannot fuse its epilogue, the
@@ -11,6 +12,10 @@ steps aside counts its reason (step_aside) and the next rung is tried; only
 the ladder's final verdict is a decline: the dispatcher records it
 (runtime.record_route("host", reason)) and returns None, and the operator
 runs its host Arrow path, which gives the same answer.
+
+It also holds the device join's admission tiers (the static multiplicity
+ladder and the cost model's extended tiers) and filter_batch, the
+per-batch device filter of a FilterExec outside any fused stage.
 """
 
 from __future__ import annotations
@@ -20,18 +25,29 @@ import os
 import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import pyarrow as pa
 
-from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice, record_route
+from ballista_tpu_torch.ops.runtime import (
+    ScanDictionaries,
+    UnsupportedOnDevice,
+    bucket_rows,
+    column_to_numpy,
+    pad_to,
+    readback,
+    record_route,
+    upload,
+)
 
 
 def host_fallback(reason: str) -> None:
     """Canonical Optional-sentinel decline: logs and counts the reason, then
-    returns the None the dispatcher maps to the host Arrow path."""
-    from ballista_tpu_torch.utils import tracing
+    returns the None the dispatcher maps to the host Arrow path. Inside a
+    routing probe the trace buffers with the decision counters, so a
+    speculative attempt that declined leaves no phantom fallback."""
+    from ballista_tpu_torch.ops.runtime import record_decline_trace
 
-    tracing.incr("device.host_fallback")
-    logging.getLogger("ballista.cuda").debug("host fallback: %s", reason)
+    record_decline_trace("device.host_fallback", f"host fallback: {reason}")
     return None
 
 
@@ -46,6 +62,79 @@ def step_aside(reason: str) -> None:
     tracing.incr("device.step_aside")
     logging.getLogger("ballista.cuda").debug("ladder step-aside: %s", reason)
     record_step_aside(reason)
+    return None
+
+
+# -- M:N join admission ------------------------------------------------------
+# Bounded-width gather tiers for the device hash join (ops/join.py): duplicate
+# build keys expand each probe into up to max-multiplicity matched rows, and
+# the gather width is the smallest tier covering the observed maximum
+# run-length. Shapes past the top tier, or whose padded [probe slots x width]
+# plane would exceed the element cap, step aside to the host sort-merge join
+# with a recorded reason. The tiers, caps and probe-slot padding are the JAX
+# package's, so both packages take the same decision on the same input.
+JOIN_MULTIPLICITY_TIERS = (1, 4, 16, 64, 256)
+# padded gather elements (probe slots x width); past this the bounded-width
+# plane and its readback cost more than the host join it replaces (2^26
+# int32 elements = 256 MiB on the wire)
+JOIN_GATHER_CAP = 1 << 26
+
+
+def join_multiplicity_tier(
+    max_mult: int, probe_slots: int
+) -> Tuple[Optional[int], Optional[str]]:
+    """Admission for the M:N bounded-width gather: (tier, None) with the
+    smallest width covering `max_mult`, or (None, reason) past the ladder."""
+    for tier in JOIN_MULTIPLICITY_TIERS:
+        if max_mult <= tier:
+            # width 1 reads back exactly one int32 per probe, uncapped: the
+            # cap guards the padding amplification, which exists only past
+            # width 1
+            if tier > 1 and probe_slots * tier > JOIN_GATHER_CAP:
+                return None, (
+                    f"M:N gather {probe_slots}x{tier} exceeds the "
+                    f"{JOIN_GATHER_CAP}-element cap"
+                )
+            return tier, None
+    return None, (
+        f"build-key multiplicity {max_mult} exceeds top tier "
+        f"{JOIN_MULTIPLICITY_TIERS[-1]}"
+    )
+
+
+# -- cost-model tier extension ------------------------------------------------
+# The static ladder above stays the cold-start prior AND the hard safety cap:
+# a shape it declines may still run on the device, but only when the
+# measured cost store (ops/costmodel.py) says the device gather beats the
+# host join for that shape, and never past the hard cap below.
+JOIN_EXTENDED_TIERS = (512, 1024)
+JOIN_GATHER_HARD_CAP = JOIN_GATHER_CAP * 4
+# predicted device cost must beat the host prediction by this margin
+_EXT_MARGIN = 0.75
+
+
+def join_extended_tier(
+    max_mult: int, probe_slots: int, host_units: int
+) -> Optional[Tuple[int, float, float]]:
+    """Evidence-gated admission past the static ladder: (tier, predicted
+    device seconds, predicted host seconds) when the warm store says the
+    gather beats the host join by _EXT_MARGIN; None when cold, unfavourable
+    or past the hard cap. The static widths are candidates too: a join
+    declined only on the element cap re-admits at its natural width.
+    `host_units` is the host join's work measure (build + probe rows)."""
+    from ballista_tpu_torch.ops import costmodel
+
+    for tier in JOIN_MULTIPLICITY_TIERS + JOIN_EXTENDED_TIERS:
+        if max_mult <= tier:
+            if probe_slots * tier > JOIN_GATHER_HARD_CAP:
+                return None
+            dev = costmodel.predict("join.gather", probe_slots * tier)
+            host = costmodel.predict("join.host", host_units, engine="host")
+            if dev is None or host is None:
+                return None  # cold store: the static ladder is the prior
+            if dev < _EXT_MARGIN * host:
+                return tier, dev, host
+            return None
     return None
 
 
@@ -178,6 +267,20 @@ def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
 
 
 def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
+    from ballista_tpu_torch.ops import costmodel
+
+    # bind the cost model from this dispatch's config before any path that
+    # observes (the count-join prescreen included)
+    costmodel.configure(ctx.config)
+    # COUNT over a LEFT join as device membership counting (q13): the
+    # per-probe counts plane replaces the join expansion. A cheap shape
+    # prescreen: other aggregates fall through to the stage ladder
+    if ctx.config.tpu_device_join():
+        from ballista_tpu_torch.ops.countjoin import try_count_left_join
+
+        counted = try_count_left_join(exec_node, partition, ctx)
+        if counted is not None:
+            return counted
     stage, key = resolve_stage(exec_node, ctx)
     if stage is False:
         return None
@@ -197,3 +300,62 @@ def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
             _stage_cache[key] = False
         record_route("host", str(e))
         return host_fallback(reason)
+
+
+# compiled stand-alone predicates, keyed structurally (an id() key could be
+# recycled after GC and serve a stale predicate); False caches a decline
+_filter_cache: Dict[tuple, object] = {}
+
+
+def _compile_predicate(predicate, schema: pa.Schema):
+    """(compiler, mask function) for a boolean predicate over `schema`, or
+    False when it cannot lower to the device."""
+    key = (str(predicate), tuple(schema.names), tuple(str(t) for t in schema.types))
+    hit = _filter_cache.get(key)
+    if hit is not None:
+        return hit
+    from ballista_tpu_torch.ops.torchexpr import ExprCompiler, predicate_fn
+
+    try:
+        compiler = ExprCompiler(schema, ScanDictionaries())
+        cv = compiler.compile(predicate)
+        if cv.kind != "bool":
+            raise UnsupportedOnDevice("non-boolean predicate")
+        # WHERE collapse: NULL -> excluded
+        hit = (compiler, predicate_fn(cv))
+    except UnsupportedOnDevice:
+        hit = False
+    _filter_cache[key] = hit
+    return hit
+
+
+def filter_batch(batch: pa.RecordBatch, predicate, device) -> Optional[pa.RecordBatch]:
+    """Evaluate the predicate on `device` (one boolean mask per batch, one
+    readback) and compact on the host. None when the predicate or a column
+    cannot lower; the operator then filters on the host."""
+    import torch
+
+    hit = _compile_predicate(predicate, batch.schema)
+    if hit is False:
+        return None
+    compiler, mask_fn = hit
+    n = batch.num_rows
+    bucket = bucket_rows(n)
+    try:
+        cols = {}
+        for idx, dtype in compiler.used_columns.items():
+            d = compiler.dicts.dicts.get(idx)
+            npcol = column_to_numpy(batch.column(idx), dtype, d)
+            fill = False if npcol.dtype == np.bool_ else 0
+            cols[idx] = upload(pad_to(npcol, bucket, fill), device)
+    except UnsupportedOnDevice as e:
+        from ballista_tpu_torch.ops.runtime import record_routing
+
+        record_routing("host", "filter")
+        return host_fallback(f"filter batch lowering: {e}")
+    aux = [upload(np.asarray(a), device) for a in compiler.build_aux()]
+    mask = torch.broadcast_to(torch.as_tensor(mask_fn(cols, aux), device=device),
+                              (bucket,))
+    # the boolean mask crosses to the host once per batch
+    keep = readback(mask)[:n]
+    return batch.filter(pa.array(keep))

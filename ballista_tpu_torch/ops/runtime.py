@@ -17,9 +17,10 @@ is no global device state and no silent move to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -517,6 +518,11 @@ _routes: Dict[str, int] = {}  # guarded-by: _routing_lock
 _decline_reasons: Dict[str, int] = {}  # guarded-by: _routing_lock
 _routing_events: Dict[str, int] = {}  # guarded-by: _routing_lock
 _step_asides: Dict[str, int] = {}  # guarded-by: _routing_lock
+# cost-model decisions (ops/costmodel.py): predicted and observed seconds
+# summed over the decisions that carried both, and the gross mispredicts
+_routing_costs = {  # guarded-by: _routing_lock
+    "predicted_s": 0.0, "observed_s": 0.0, "predictions": 0, "mispredicts": 0,
+}
 
 
 def record_route(route: str, reason: Optional[str] = None) -> None:
@@ -526,9 +532,9 @@ def record_route(route: str, reason: Optional[str] = None) -> None:
             _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
 
 
-def record_routing_event(event: str) -> None:
+def record_routing_event(event: str, n: int = 1) -> None:
     with _routing_lock:
-        _routing_events[event] = _routing_events.get(event, 0) + 1
+        _routing_events[event] = _routing_events.get(event, 0) + int(n)
 
 
 def record_step_aside(reason: str) -> None:
@@ -536,16 +542,132 @@ def record_step_aside(reason: str) -> None:
         _step_asides[reason] = _step_asides.get(reason, 0) + 1
 
 
+# speculative-attempt scope: the build-side swap (ops/join.py) runs the whole
+# device join ladder on the swapped shape, and only an attempt that produced
+# a result becomes the decision; a failed attempt is followed by the planned
+# sides, which record the real outcome. Decision counters made inside a probe
+# (record_routing, record_join_path, record_decline_trace) buffer in it and
+# land only on commit, so one join never counts a decline AND the planned
+# decision. Named events (record_routing_event: retier, split, ...) pass
+# through: they describe work and store changes that really happened.
+_probe_tls = threading.local()
+
+
+class _RoutingProbe:
+    def __init__(self) -> None:
+        self.buf: List[tuple] = []
+
+    def commit(self) -> None:
+        """Land the buffered decisions (after the with-block). Replays
+        through the public recorders, so an outer probe keeps buffering."""
+        buf, self.buf = self.buf, []
+        for kind, args in buf:
+            if kind == "routing":
+                record_routing(*args)
+            elif kind == "trace":
+                record_decline_trace(*args)
+            else:
+                record_join_path(*args)
+
+
+@contextlib.contextmanager
+def routing_probe() -> Iterator[_RoutingProbe]:
+    """Buffer the decision counters recorded in the body; the caller
+    commits them only when the probed attempt became the decision."""
+    prev = getattr(_probe_tls, "probe", None)
+    probe = _RoutingProbe()
+    _probe_tls.probe = probe
+    try:
+        yield probe
+    finally:
+        _probe_tls.probe = prev
+
+
+def record_decline_trace(counter: str, message: str) -> None:
+    """Decline observability (tracing counter and debug log) that respects
+    an active routing probe."""
+    probe = getattr(_probe_tls, "probe", None)
+    if probe is not None:
+        probe.buf.append(("trace", (counter, message)))
+        return
+    import logging
+
+    from ballista_tpu_torch.utils import tracing
+
+    tracing.incr(counter)
+    logging.getLogger("ballista.cuda").debug("%s", message)
+
+
+def record_routing(engine: str, op: str, predicted_s: Optional[float] = None,
+                   observed_s: Optional[float] = None) -> None:
+    """One cost-model routing decision: the event "<op>:<engine>" (e.g.
+    "join:device", "join:host", "join.counts:device") and, when the cost
+    model predicted, how the prediction held up. Stage routes are
+    record_route's; a join decision never lands there."""
+    from ballista_tpu_torch.ops.costmodel import gross_mispredict
+
+    probe = getattr(_probe_tls, "probe", None)
+    if probe is not None:
+        probe.buf.append(("routing", (engine, op, predicted_s, observed_s)))
+        return
+    with _routing_lock:
+        k = f"{op}:{engine}"
+        _routing_events[k] = _routing_events.get(k, 0) + 1
+        if predicted_s is not None and observed_s is not None:
+            _routing_costs["predictions"] += 1
+            _routing_costs["predicted_s"] += float(predicted_s)
+            _routing_costs["observed_s"] += float(observed_s)
+            if gross_mispredict(predicted_s, observed_s):
+                _routing_costs["mispredicts"] += 1
+
+
 def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
     """{"routes": {route: n}, "reasons": {decline reason: n},
-    "events": {event: n}, "step_asides": {step-aside reason: n}}"""
+    "events": {event: n}, "step_asides": {step-aside reason: n},
+    "costs": {"predicted_s", "observed_s", "predictions", "mispredicts"}}"""
     with _routing_lock:
         out = {"routes": dict(_routes), "reasons": dict(_decline_reasons),
                "events": dict(_routing_events),
-               "step_asides": dict(_step_asides)}
+               "step_asides": dict(_step_asides),
+               "costs": dict(_routing_costs)}
         if reset:
             _routes.clear()
             _decline_reasons.clear()
             _routing_events.clear()
             _step_asides.clear()
+            _routing_costs.update(predicted_s=0.0, observed_s=0.0,
+                                  predictions=0, mispredicts=0)
+    return out
+
+
+# join-path outcomes across join executions: every device-join attempt lands
+# in exactly one bucket: "device" (the device join produced the result),
+# "split" (device prefix plus host remainder at the tier boundary),
+# "step_aside" (the multiplicity / gather admission declined and the host
+# join ran) or "host_fallback" (any other decline). Reasons count verbatim
+# as "path: reason", so a run says why a join left the device.
+_join_lock = threading.Lock()
+_join_paths: Dict[str, int] = {}  # guarded-by: _join_lock
+_join_reasons: Dict[str, int] = {}  # guarded-by: _join_lock
+
+
+def record_join_path(path: str, reason: Optional[str] = None) -> None:
+    probe = getattr(_probe_tls, "probe", None)
+    if probe is not None:
+        probe.buf.append(("join_path", (path, reason)))
+        return
+    with _join_lock:
+        _join_paths[path] = _join_paths.get(path, 0) + 1
+        if reason:
+            key = f"{path}: {reason}"
+            _join_reasons[key] = _join_reasons.get(key, 0) + 1
+
+
+def join_path_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
+    """{"paths": {path: n}, "reasons": {"path: reason": n}}"""
+    with _join_lock:
+        out = {"paths": dict(_join_paths), "reasons": dict(_join_reasons)}
+        if reset:
+            _join_paths.clear()
+            _join_reasons.clear()
     return out

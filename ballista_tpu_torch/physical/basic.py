@@ -81,9 +81,18 @@ class FilterExec(ExecutionPlan):
         return FilterExec(children[0], self.predicate)
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
-        # a stand-alone filter has no device path in this port yet: filters
-        # reach the device only fused into an aggregate stage
+        # per-operator device filter (ballista.tpu.per_op_dispatch); filters
+        # under an aggregate reach the device fused into its stage instead
+        on_device = ctx.backend == "cuda" and ctx.config.tpu_per_op()
+        if on_device:
+            from ballista_tpu_torch.ops.dispatch import device_filter
         for batch in self.input.execute(partition, ctx):
+            if on_device:
+                out = device_filter(batch, self.predicate, ctx)
+                if out is not None:
+                    if out.num_rows:
+                        yield out
+                    continue
             mask = _as_array(self.predicate.evaluate(batch), batch.num_rows)
             mask = pc.fill_null(mask, False)
             out = batch.filter(mask)

@@ -99,8 +99,23 @@ class HashJoinExec(ExecutionPlan):
                 [build.column(k) for k in right_keys],
                 [probe.column(k) for k in left_keys],
             )
-            # device membership counting is not ported yet: host join
             keep_idx = None
+            if (self.filter is None and ctx.backend == "cuda"
+                    and ctx.config.tpu_device_join()):
+                # EXISTS / NOT EXISTS as device membership counting (q22):
+                # counts > 0 keeps SEMI rows, counts == 0 keeps ANTI rows,
+                # exactly the host oracle's semi_right / anti_right
+                # selections. A decline (None, reason recorded) falls
+                # through to the host path.
+                from ballista_tpu_torch.ops import costmodel
+                from ballista_tpu_torch.ops.join import device_membership_counts
+
+                costmodel.configure(ctx.config)
+                counts = device_membership_counts(bcodes, pcodes, ctx.device)
+                if counts is not None:
+                    keep = counts > 0 if self.join_type == JoinType.SEMI \
+                        else counts == 0
+                    keep_idx = np.nonzero(keep)[0]
             if keep_idx is None:
                 if self.filter is None:
                     how = "semi_right" if self.join_type == JoinType.SEMI else "anti_right"
@@ -116,7 +131,30 @@ class HashJoinExec(ExecutionPlan):
         else:
             build = self._collect_build(self.left, ctx)
         probe = collect_partition(self.right, partition, ctx)
-        # the device M:N join is not ported yet: the host join runs
+        device_declined = False
+        if (self.join_type == JoinType.INNER and ctx.backend == "cuda"
+                and ctx.config.tpu_device_join()):
+            # device M:N join: sorted paired binary search and a
+            # bounded-width gather, duplicate build keys included; the cost
+            # model rides the config (split, extended tiers, build-side
+            # swap). A decline (None, reason recorded) falls through to the
+            # host join.
+            from ballista_tpu_torch.ops import costmodel
+            from ballista_tpu_torch.ops.join import try_device_inner_join
+
+            costmodel.configure(ctx.config)
+            res = try_device_inner_join(
+                build, probe, left_keys, right_keys, ctx.device, config=ctx.config
+            )
+            if res is not None:
+                left_idx, right_idx = res
+                left_out = take_table(build, left_idx)
+                right_out = take_table(probe, right_idx)
+                cols = list(left_out.columns) + list(right_out.columns)
+                out = pa.table(cols, schema=self._schema)
+                yield from batch_table(out, ctx.batch_size)
+                return
+            device_declined = True
         bcodes, pcodes = combined_key_codes(
             [build.column(k) for k in left_keys],
             [probe.column(k) for k in right_keys],
@@ -136,7 +174,17 @@ class HashJoinExec(ExecutionPlan):
                 f"{how} join requires co-partitioned inputs or a "
                 "single-partition probe side"
             )
-        left_idx, right_idx = join_indices(bcodes, pcodes, how)
+        if device_declined:
+            # the host join after a device decline is the device's
+            # alternative cost: measure it, so tier selection learns what
+            # the host join costs at this scale
+            from ballista_tpu_torch.ops import costmodel
+
+            with costmodel.timed("join.host", len(bcodes) + len(pcodes),
+                                 engine="host", predictive=False):
+                left_idx, right_idx = join_indices(bcodes, pcodes, how)
+        else:
+            left_idx, right_idx = join_indices(bcodes, pcodes, how)
         left_out = take_table(build, left_idx)
         right_out = take_table(probe, right_idx)
         cols = list(left_out.columns) + list(right_out.columns)

@@ -57,12 +57,46 @@ Phases, each of which fails the run (non-zero exit) on any error:
    mappedscan.dim_maps) per query, and the device time inside one more
    warm run (torch.profiler, `warm_device_ms`) with the warm median's idle
    share. Launch counters are 0 when it starts;
-   neither kernel is on this path, and their counts are printed.
+   neither kernel is on this path, and their counts are printed. The dim
+   sides join on the card (ops/join.py): each query prints its join paths
+   (runtime.join_path_stats, every non-"device" path with its reason),
+   q3, q5 and q10 must record at least one "device" join, and the readback
+   rules above hold for the stage's own step: the join module's readbacks
+   (ops/join.py::readback_stats) are subtracted from the totals, cold and
+   warm, whether a warm run joins again or not.
+7. tpch: the nine TPC-H queries no other phase runs in full (q2, q11,
+   q13, q15, q16, q17, q20, q21, q22) at --sf, one cold and three warm runs
+   each, every answer held against the "cpu" backend under the tolerance
+   of phase 3. Prints routes, join paths with reasons, the
+   device.count_join counter, readbacks and cold / warm ms. q13 must count
+   its LEFT join on the card (device.count_join >= 1) and q22 must keep its
+   rows off a device membership join ("join.counts:device"). With phases 3
+   and 6 this runs all 22 TPC-H queries through the package on the card.
+8. join shapes: ops/join.py::device_join_indices on CUDA tensors against
+   the host oracle physical/joinutil.py::join_indices(..., "inner"),
+   bit-for-bit (indices, order, counts), on four shapes made from --seed,
+   their row counts scaled by --sf (SF 1's given here): unique keys (1.5M
+   build, 6M probes, tier 1), M:N (a 2M-row build over 200k keys, at most
+   16 per key, 2M probes, tier 16), skew (1M unique keys plus 8 hot keys of
+   2,000 rows, 2M probes: the cost model, on with a cold store, records
+   "split") and extended (400k unique keys plus 1,000 keys of 100..300
+   rows, 200k probes, a store seeded so that the gather is cheap and the
+   host join dear: width 512, "device" with the extended-tier reason).
+   Prints the device ms of the runs step and of the gather, the host ms of
+   device_join_indices and device_membership_counts, and the host
+   oracle's ms.
+
+Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
+emptied before each query and shape), so each run starts from the same cold
+routing; phase 8 seeds its store where it says so.
 
 With --compare-sources DIR, phases 4 and 5 also build the kernel sources
 in DIR (PR 2's C interface, e.g. unpacked with `git show`) and time them on
 the same inputs in turns (previous, current, current, previous):
 `previous_ms`, `previous_ms_single`.
+
+No Pallas kernel lies on a join path in the JAX package either: both
+kernels' launches on phases 6 to 8 are counted and printed (0 expected).
 
 Prints one {"ptxas": ..., "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
@@ -86,6 +120,7 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and f32
 # non-tensor-core rate, for the bound of a memory-bound f32 reduction
@@ -133,6 +168,14 @@ JOIN_QUERIES = [
 Q10_K = 20
 # host spans of the join stages' dim sides (ops/factagg.py, ops/mappedscan.py)
 DIM_SPANS = ("factagg.dim_side", "factagg.secondary_side", "mappedscan.dim_maps")
+# queries whose dim sides must record a device join (as the JAX package's do)
+DEVICE_DIM_JOINS = ("q3", "q5", "q10")
+# phase 7: the TPC-H queries no other phase runs in full
+TPCH_REST = ["q2", "q11", "q13", "q15", "q16", "q17", "q20", "q21", "q22"]
+TPCH_WARM = 3
+# every phase: an in-memory cost store, so routing starts cold each run
+BASE = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": "",
+        "ballista.tpu.cost_model_dir": ""}
 
 
 def fail(msg: str) -> None:
@@ -334,7 +377,7 @@ def phase_path(sf: float, seed: int, data_dir: str):
         ("topk_revenue", TOPK_REVENUE, {}, "sorted", TOPK_K),
         ("topk_revenue_unfused", TOPK_REVENUE_UNFUSED, {}, "sorted", None),
     ]
-    base = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": ""}
+    base = BASE
     host_ctx = ExecutionContext(BallistaConfig({**base, "ballista.executor.backend": "cpu"}))
     register_all(host_ctx, data_dir)
     host_answers = {}
@@ -463,6 +506,32 @@ def _join_readback_rules(name: str, stage, routes: dict, reads: dict, runs: int)
     return {}
 
 
+def _check_join_paths(name: str, paths: dict) -> None:
+    """Every join path but "device" must say why the join left the card."""
+    for path in paths["paths"]:
+        if path != "device" and not any(r.startswith(path + ": ") for r in paths["reasons"]):
+            fail(f"{name}: join path {path!r} recorded without a reason: {paths}")
+
+
+def _stage_reads(reads: dict, join_reads: dict) -> dict:
+    """The stage's own readbacks: the totals less the join module's."""
+    return {k: reads[k] - join_reads[k] for k in reads}
+
+
+def _reset_counters() -> None:
+    from ballista_tpu_torch.ops import costmodel, runtime
+    from ballista_tpu_torch.ops import join as device_join
+    from ballista_tpu_torch.utils import tracing
+
+    costmodel.reset()
+    runtime.routing_stats(reset=True)
+    runtime.readback_stats(reset=True)
+    runtime.ingest_stats(reset=True)
+    runtime.join_path_stats(reset=True)
+    device_join.readback_stats(reset=True)
+    tracing.reset()
+
+
 def phase_joins(data_dir: str):
     """Phase 6 (see the module docstring), over phase 3's data."""
     import torch
@@ -472,9 +541,10 @@ def phase_joins(data_dir: str):
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine import ExecutionContext
     from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.ops import join as device_join
     from ballista_tpu_torch.utils import tracing
 
-    base = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": ""}
+    base = BASE
     host_ctx = ExecutionContext(BallistaConfig({**base, "ballista.executor.backend": "cpu"}))
     register_all(host_ctx, data_dir)
     times = {}
@@ -485,16 +555,15 @@ def phase_joins(data_dir: str):
         kernels.clear_stage_cache()
         ctx = ExecutionContext(BallistaConfig(base))
         register_all(ctx, data_dir)
-        runtime.routing_stats(reset=True)
-        runtime.readback_stats(reset=True)
-        runtime.ingest_stats(reset=True)
-        tracing.reset()
+        _reset_counters()
         t0 = time.perf_counter()
         got = ctx.sql(sql).collect()
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         routes = runtime.routing_stats()
         reads = runtime.readback_stats(reset=True)
+        join_reads = device_join.readback_stats(reset=True)
+        joins = runtime.join_path_stats(reset=True)
         ingest = runtime.ingest_stats()
         dim_ms = sum(dt for path, dt, _ in tracing.spans()
                      if path.split("/")[-1] in DIM_SPANS) * 1e3
@@ -505,8 +574,12 @@ def phase_joins(data_dir: str):
                 fail(f"{name}: expected route {route!r}, recorded {routes['routes']}")
         if want_routes is None and not (set(routes["routes"]) & {"batches", "sorted"}):
             fail(f"{name}: no batches or sorted route recorded: {routes['routes']}")
+        _check_join_paths(name, joins)
+        if name in DEVICE_DIM_JOINS and joins["paths"].get("device", 0) < 1:
+            fail(f"{name}: its dim side recorded no device join: {joins}")
         stage = _join_stage(name, kind, routes)
-        checked = _join_readback_rules(name, stage, routes, reads, 1)
+        checked = _join_readback_rules(name, stage, routes,
+                                       _stage_reads(reads, join_reads), 1)
         warm = []
         runtime.routing_stats(reset=True)
         for _ in range(5):
@@ -516,9 +589,13 @@ def phase_joins(data_dir: str):
             warm.append((time.perf_counter() - t0) * 1e3)
         warm_routes = runtime.routing_stats(reset=True)
         warm_reads = runtime.readback_stats(reset=True)
+        warm_join_reads = device_join.readback_stats(reset=True)
+        warm_joins = runtime.join_path_stats(reset=True)
         if warm_routes["routes"].get("host") or warm_routes["reasons"]:
             fail(f"{name}: a warm run declined to the host: {warm_routes}")
-        _join_readback_rules(name, stage, warm_routes, warm_reads, 5)
+        _check_join_paths(name + " (warm)", warm_joins)
+        _join_readback_rules(name, stage, warm_routes,
+                             _stage_reads(warm_reads, warm_join_reads), 5)
         busy_ms = _device_busy_ms(lambda: ctx.sql(sql).collect())
         runtime.routing_stats(reset=True)
         runtime.readback_stats(reset=True)
@@ -528,13 +605,15 @@ def phase_joins(data_dir: str):
         times[name] = {
             "stage": type(stage).__name__ if kind == "fact" else "FusedAggregateStage/MappedScanExec",
             "routes": routes["routes"], "events": routes["events"],
+            "join_paths": joins, "warm_join_paths": warm_joins,
             "rows": got.num_rows, "cold_ms": cold_ms,
             "warm_ms": statistics.median(warm), "warm_runs_ms": warm,
             "readbacks": reads["readbacks"], "readback_rows": reads["rows"],
-            "readback_bytes": reads["bytes"],
+            "readback_bytes": reads["bytes"], "join_readbacks": join_reads,
             "warm_readback_rows_per_run": warm_reads["rows"] / 5,
+            "warm_join_readbacks": warm_join_reads,
             # the cold run's host prepare of the fact scan (scan, encode,
-            # upload, wall) and the host dim side
+            # upload, wall) and the dim side (its joins now on the card)
             "prepare_ms": {k: ingest[k] * 1e3 for k in
                            ("scan_s", "encode_s", "upload_s", "wall_s")},
             "dim_ms": dim_ms,
@@ -549,6 +628,220 @@ def phase_joins(data_dir: str):
     launches = cuda_kernels.launch_counts()
     kernels.clear_stage_cache()
     return times, launches
+
+
+def phase_tpch(data_dir: str):
+    """Phase 7 (see the module docstring), over phase 3's data."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import ExecutionContext
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.ops import join as device_join
+    from ballista_tpu_torch.utils import tracing
+
+    host_ctx = ExecutionContext(BallistaConfig({**BASE, "ballista.executor.backend": "cpu"}))
+    register_all(host_ctx, data_dir)
+    times = {}
+    cuda_kernels.reset_launch_counts()
+    for name in TPCH_REST:
+        sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+        kernels.clear_stage_cache()
+        ctx = ExecutionContext(BallistaConfig(BASE))
+        register_all(ctx, data_dir)
+        _reset_counters()
+        t0 = time.perf_counter()
+        got = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        routes = runtime.routing_stats(reset=True)
+        reads = runtime.readback_stats(reset=True)
+        join_reads = device_join.readback_stats(reset=True)
+        joins = runtime.join_path_stats(reset=True)
+        count_joins = tracing.counters().get("device.count_join", 0)
+        _check_join_paths(name, joins)
+        if name == "q13" and count_joins < 1:
+            fail(f"q13: COUNT over its LEFT join did not run on the card: {joins}")
+        if name == "q22" and routes["events"].get("join.counts:device", 0) < 1:
+            fail(f"q22: no device membership join recorded: {routes['events']}")
+        warm = []
+        for _ in range(TPCH_WARM):
+            t0 = time.perf_counter()
+            again = ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        warm_routes = runtime.routing_stats(reset=True)
+        warm_joins = runtime.join_path_stats(reset=True)
+        warm_reads = runtime.readback_stats(reset=True)
+        _check_join_paths(name + " (warm)", warm_joins)
+        t0 = time.perf_counter()
+        expect = host_ctx.sql(sql).collect()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        _compare(name, got, expect)
+        _compare(name + " (warm)", again, expect)
+        times[name] = {
+            "rows": got.num_rows, "routes": routes["routes"],
+            "reasons": routes["reasons"], "step_asides": routes["step_asides"],
+            "events": routes["events"], "join_paths": joins,
+            "warm_join_paths": warm_joins, "warm_routes": warm_routes["routes"],
+            "count_join": count_joins,
+            "readbacks": reads["readbacks"], "readback_rows": reads["rows"],
+            "readback_bytes": reads["bytes"], "join_readbacks": join_reads,
+            "warm_readbacks_per_run": warm_reads["readbacks"] / TPCH_WARM,
+            "cold_ms": cold_ms, "warm_ms": statistics.median(warm),
+            "warm_runs_ms": warm, "cpu_backend_ms": host_ms,
+        }
+        log(f"{name}: {times[name]}")
+    launches = cuda_kernels.launch_counts()
+    kernels.clear_stage_cache()
+    return times, launches
+
+
+def _join_shapes(seed: int, sf: float):
+    """(name, build codes, probe codes, expected path, expected width,
+    cost-store seeds) of phase 8's four shapes, made from `seed`. Row
+    counts scale with `sf` (the sizes below are SF 1's: orders and
+    lineitem); the multiplicities, which decide the path, do not."""
+    rng = np.random.default_rng(seed)
+
+    def n(rows: int) -> int:
+        return max(64, int(rows * sf))
+
+    shapes = []
+    # unique keys: orders against lineitem, every probe matches
+    build = rng.choice(n(6_000_000), n(1_500_000), replace=False).astype(np.int64)
+    probe = build[rng.integers(0, len(build), n(6_000_000))]
+    shapes.append(("unique", build, probe, "device", 1, ()))
+    # M:N: keys of 4..16 rows each (10 on average), probes with misses
+    n_keys = n(200_000) // 2 * 2
+    counts = np.full(n_keys, 10, dtype=np.int64)
+    perm = rng.permutation(n_keys)
+    delta = rng.integers(0, 7, n_keys // 2)
+    counts[perm[: n_keys // 2]] += delta
+    counts[perm[n_keys // 2:]] -= delta
+    counts[perm[0]] = 16
+    keys = rng.choice(2 * n_keys, n_keys, replace=False).astype(np.int64)
+    build = np.repeat(keys, counts)
+    rng.shuffle(build)
+    probe = rng.integers(0, 2 * n_keys, n(2_000_000)).astype(np.int64)
+    shapes.append(("mn", build, probe, "device", 16, ()))
+    # skew: unique keys and 8 hot keys of 2,000 rows each
+    n_unique = n(1_000_000)
+    hot = np.arange(n_unique, n_unique + 8, dtype=np.int64)
+    build = np.concatenate([np.arange(n_unique, dtype=np.int64), np.repeat(hot, 2_000)])
+    rng.shuffle(build)
+    probe = rng.integers(0, n_unique + 8, n(2_000_000)).astype(np.int64)
+    probe[:8] = hot  # every hot key is probed
+    shapes.append(("skew", build, probe, "split", 1, ()))
+    # extended: unique keys and keys of 100..300 rows; the store says the
+    # width-512 gather is cheap and the host join dear
+    n_unique, n_multi = n(400_000), max(8, n(1_000))
+    mult = rng.integers(100, 301, n_multi)
+    mult[0] = 300
+    build = np.concatenate([
+        np.arange(n_unique, dtype=np.int64),
+        np.repeat(np.arange(n_unique, n_unique + n_multi, dtype=np.int64), mult)])
+    rng.shuffle(build)
+    probe = rng.integers(0, n_unique + n_multi, n(200_000)).astype(np.int64)
+    probe[0] = n_unique  # the multiplicity-300 key is probed
+    from ballista_tpu_torch.ops.runtime import bucket_rows
+
+    slots = bucket_rows(len(probe), 16)
+    seeds = (("join.gather", slots * 512, 1e-3, "device"),
+             ("join.host", len(build) + len(probe), 10.0, "host"))
+    shapes.append(("extended", build, probe, "device", 512, seeds))
+    return shapes
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host milliseconds of fn() ending in a device synchronise."""
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def phase_join_shapes(seed: int, sf: float):
+    """Phase 8 (see the module docstring)."""
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops import costmodel, cuda_kernels, runtime
+    from ballista_tpu_torch.ops import join as device_join
+    from ballista_tpu_torch.physical.joinutil import join_indices
+
+    dev = torch.device("cuda")
+    config = BallistaConfig({**BASE, "ballista.tpu.cost_model": "true"})
+    cuda_kernels.reset_launch_counts()
+    results = {}
+    for name, build, probe, want_path, want_tier, seeds in _join_shapes(seed, sf):
+        costmodel.reset()
+        costmodel.configure(config)
+        for op, units, secs, engine in seeds:
+            costmodel.seed(op, units, secs, engine=engine)
+        runtime.join_path_stats(reset=True)
+        device_join.readback_stats(reset=True)
+        t0 = time.perf_counter()
+        got = device_join.device_join_indices(build, probe, dev, config)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        paths = runtime.join_path_stats(reset=True)
+        reads = device_join.readback_stats(reset=True)
+        if got is None:
+            fail(f"join shape {name}: the device declined: {paths}")
+        t0 = time.perf_counter()
+        bi, pi = join_indices(build, probe, "inner")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        want_counts = np.bincount(pi, minlength=len(probe))
+        for label, a, b in (("build indices", got[0], bi), ("probe indices", got[1], pi),
+                            ("counts", got[2], want_counts)):
+            if a.dtype != np.int64 or not np.array_equal(a, b):
+                fail(f"join shape {name}: {label} differ from the host oracle")
+        if set(paths["paths"]) != {want_path} or paths["paths"][want_path] != 1:
+            fail(f"join shape {name}: recorded {paths}, expected one {want_path!r}")
+        _check_join_paths(name, paths)
+        slots = runtime.bucket_rows(len(probe), 16)
+        # two readbacks: the counts plane (one int32 per slot), the gather
+        tier = (reads["bytes"] - 4 * slots) // (4 * slots)
+        if reads["readbacks"] != 2 or tier != want_tier:
+            fail(f"join shape {name}: gathered at width {tier} in {reads['readbacks']} "
+                 f"readbacks, expected width {want_tier}")
+        if want_tier == 512 and "device: extended tier past the static ladder" not in paths["reasons"]:
+            fail(f"join shape {name}: no extended-tier reason: {paths}")
+        b = runtime.upload(runtime.pad_to(build.astype(np.int32),
+                                          runtime.bucket_rows(len(build), 16),
+                                          device_join._PAD_CODE), dev)
+        p = runtime.upload(runtime.pad_to(probe.astype(np.int32), slots, -1), dev)
+        order, starts, counts = device_join.join_runs(b, p)
+        runs_ms = _time_ms(lambda: device_join.join_runs(b, p))
+        gather_ms = _time_ms(lambda: device_join.gather_matches(order, starts, counts, tier))
+        membership_ms = _host_ms(
+            lambda: device_join.device_membership_counts(build, probe, dev))
+        runtime.join_path_stats(reset=True)
+        device_join.readback_stats(reset=True)
+        results[name] = {
+            "build_rows": int(len(build)), "probe_rows": int(len(probe)),
+            "probe_slots": slots, "max_multiplicity": int(want_counts.max()),
+            "matches": int(len(bi)), "path": paths, "tier": int(tier),
+            "readback_bytes": reads["bytes"],
+            # device_join_indices end to end (upload, runs, both readbacks,
+            # host flatten; the split's host remainder), first call
+            "device_join_indices_ms": first_ms,
+            # device ms per call (_time_ms) of the runs step and the gather
+            # at the recorded width; host ms of the counts-only entry
+            "runs_ms": runs_ms, "gather_ms": gather_ms,
+            "membership_counts_ms": membership_ms,
+            "host_oracle_ms": host_ms,
+        }
+        log(f"join shape {name}: {results[name]}")
+        del order, starts, counts, b, p
+    return results, cuda_kernels.launch_counts()
 
 
 def _captured_kernel_inputs():
@@ -971,6 +1264,7 @@ def main() -> int:
     args = ap.parse_args()
 
     smi_line = phase_device()
+    log(smi_line)
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -990,13 +1284,18 @@ def main() -> int:
         kernels.append(phase_grouped_aggregate(args.seed, launches,
                                                previous.get("grouped_aggregate")))
         join_times, join_launches = phase_joins(data_dir)
+        tpch_times, tpch_launches = phase_tpch(data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
     for k in kernels:
         k["launches_by_path"] = {"aggregates": k["launches"],
-                                 "joins": join_launches[k["name"]]}
-    print(json.dumps({"queries": times, "joins": join_times, "build_s": build_s,
-                      "sf": args.sf}))
+                                 "joins": join_launches[k["name"]],
+                                 "tpch": tpch_launches[k["name"]],
+                                 "join_shapes": shape_launches[k["name"]]}
+    print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
+                      "join_shapes": shape_times, "build_s": build_s,
+                      "sf": args.sf, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

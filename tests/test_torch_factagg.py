@@ -39,9 +39,12 @@ def _fresh():
     jk._stage_cache_pins.clear()
     jk._stage_latest.clear()
     jr.reset_residency()
+    from ballista_tpu_torch.ops import join as tj
+
     tk.clear_stage_cache()
     tr.readback_stats(reset=True)
     tr.routing_stats(reset=True)
+    tj.readback_stats(reset=True)
 
 
 def _stages(cache):
@@ -63,8 +66,10 @@ def _stages(cache):
 
 def _run_both(paths, sql):
     """(JAX result, JAX stages, port result, port stages, port routing,
-    port readbacks)."""
+    the port stage's own readbacks: the totals less the dim side's device
+    joins, ops/join.py::readback_stats)."""
     from ballista_tpu.ops import kernels as jk
+    from ballista_tpu_torch.ops import join as tj
     from ballista_tpu_torch.ops import kernels as tk
     from ballista_tpu_torch.ops import runtime as tr
 
@@ -77,8 +82,9 @@ def _run_both(paths, sql):
         pctx.register_parquet(name, p)
     jout = jctx.sql(sql).collect()
     pout = pctx.sql(sql).collect()
+    reads, joins = tr.readback_stats(reset=True), tj.readback_stats(reset=True)
     return (jout, _stages(jk._stage_cache), pout, _stages(tk._stage_cache),
-            tr.routing_stats(reset=True), tr.readback_stats(reset=True))
+            tr.routing_stats(reset=True), {k: reads[k] - joins[k] for k in reads})
 
 
 def _assert_same(jout, pout, rtol=RTOL, atol=ATOL):
