@@ -50,6 +50,13 @@ class ExecutionContext:
         self.config = config or BallistaConfig()
         self.device = resolve_device(device)
         self.tables: Dict[str, TableSource] = {}
+        if self.config.tpu_prewarm() and self.config.backend() == "cuda":
+            # ballista.tpu.prewarm: load every kernel library now, before the
+            # first query (a no-op on CPU tensors; on a card a kernel that
+            # does not build or load raises here)
+            from ballista_tpu_torch.ops import cuda_kernels
+
+            cuda_kernels.prewarm(self.config, self.device)
 
     # -- registration ------------------------------------------------------
     def register_table(self, name: str, source: TableSource) -> None:

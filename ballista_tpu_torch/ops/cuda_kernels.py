@@ -3,11 +3,15 @@ their build and their launch counters.
 
 Each kernel's source lives in ``ballista_tpu_torch/csrc/<name>.cu`` with a
 plain C interface. ``build()`` compiles every source with ``nvcc`` for
-``sm_90a`` into ``build/kernels/lib<name>.so`` at the repository root (one
-``nvcc`` per source, all started together), and the library is loaded with
-``ctypes``. Nothing is compiled or loaded when this module is imported.
+``sm_90a`` into ``build/kernels/lib<name>-<key>.so`` at the repository root
+(one ``nvcc`` per source, all started together), and the library is loaded
+with ``ctypes``. The key (``build_key``) hashes the source, the headers,
+``NVCC_FLAGS``, ``nvcc --version`` and the card's compute capability, so a
+library on disk is reused exactly when all of those match; events count in
+``runtime.serving_stats()`` and ``prewarm`` loads every library before the
+first query. Nothing is compiled or loaded when this module is imported.
 ``nvcc`` runs with ``-Xptxas -v``; its output is kept beside each library
-(``lib<name>.log``), and ``build()`` returns each kernel's registers,
+(``lib<name>-<key>.log``), and ``build()`` returns each kernel's registers,
 shared memory, stack and spills from it.
 
 A wrapper takes its kernel's plain version only for tensors on the CPU. For
@@ -26,13 +30,15 @@ arrays (``None`` above 128 groups); no stage route calls it.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
 import os
 import pathlib
 import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -75,12 +81,183 @@ def _sources() -> List[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    return BUILD_DIR / f"lib{src.stem}.so"
+# -- the keyed build cache ------------------------------------------------------
+# A library is a function of its source, every header, NVCC_FLAGS, the nvcc
+# release and the card's compute capability: each of those goes into its
+# build key (the role of the JAX package's ops/aotcache.py::fingerprint), and
+# the key goes into the library's file name. A changed flag, header, toolkit
+# or card therefore builds anew and never reuses a stale library; a library
+# whose key is on disk loads without nvcc. manifest.json in BUILD_DIR lists
+# every entry built there.
+_KEY_FORMAT = "ballista_tpu_torch kernels v1"
+_toolchain_cache: Optional[Tuple[str, str, str]] = None  # guarded-by: _build_lock
 
 
-def _log_path(src: pathlib.Path) -> pathlib.Path:
-    return BUILD_DIR / f"lib{src.stem}.log"
+def build_key(src: pathlib.Path, flags: List[str], nvcc_version: str,
+              capability: str) -> str:
+    """sha256 of what a library is built from: the source, every ``.cuh``
+    beside it, the nvcc flags, ``nvcc --version`` and the compute
+    capability ("9.0")."""
+    h = hashlib.sha256()
+    h.update(f"{_KEY_FORMAT}\0{src.name}\0".encode())
+    h.update(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(f"\0{hdr.name}\0".encode())
+        h.update(hdr.read_bytes())
+    h.update(("\0flags\0" + "\0".join(flags)).encode())
+    h.update(f"\0nvcc\0{nvcc_version}\0sm\0{capability}".encode())
+    return h.hexdigest()
+
+
+# holds-lock: _build_lock
+def _toolchain() -> Tuple[str, str, str]:
+    """(nvcc path, ``nvcc --version`` output, compute capability of the
+    current card), found once per process."""
+    global _toolchain_cache
+    if _toolchain_cache is None:
+        import torch
+
+        nvcc = _nvcc()
+        out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                             timeout=120)
+        if out.returncode != 0:
+            raise RuntimeError(f"{nvcc} --version failed: {out.stderr.strip()}")
+        major, minor = torch.cuda.get_device_capability()
+        _toolchain_cache = (nvcc, out.stdout.strip(), f"{major}.{minor}")
+    return _toolchain_cache
+
+
+def _lib_path(src: pathlib.Path, key: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{src.stem}-{key[:16]}.so"
+
+
+def _log_path(src: pathlib.Path, key: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{src.stem}-{key[:16]}.log"
+
+
+def _manifest_path() -> pathlib.Path:
+    return BUILD_DIR / "manifest.json"
+
+
+def manifest() -> Dict[str, dict]:
+    """The build directory's entries: {key: {"name", "library", "flags",
+    "nvcc", "capability", "built_at"}} ({} when there is none yet)."""
+    try:
+        return json.loads(_manifest_path().read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def _record_manifest(entries: Dict[str, dict]) -> None:
+    merged = {**manifest(), **entries}
+    tmp = _manifest_path().with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(merged, indent=1, sort_keys=True))
+    os.replace(tmp, _manifest_path())
+
+
+def _compile(jobs: List[Tuple[pathlib.Path, pathlib.Path, str]]) -> List[Tuple[int, str]]:
+    """Run one nvcc per (source, output, nvcc path) job, all started
+    together; returns (return code, compiler output) per job."""
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, out, nvcc in jobs
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, text) for p, text in zip(procs, outs)]
+
+
+# holds-lock: _build_lock
+def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
+    """Find or build the library of each source (all of them, or `names`).
+    A library whose key is on disk counts "compile_hit_disk"; the rest are
+    compiled, one nvcc per source started together, each counting
+    "kernel_built". Returns {name: {"key", "library", "log", "seconds"
+    (None when it was on disk)}}; raises with the compiler's output when a
+    build fails."""
+    import time
+
+    from ballista_tpu_torch.ops.runtime import record_serving
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, version, capability = _toolchain()
+    out: Dict[str, dict] = {}
+    todo = []
+    for src in _sources():
+        if names is not None and src.stem not in names:
+            continue
+        key = build_key(src, NVCC_FLAGS, version, capability)
+        lib = _lib_path(src, key)
+        out[src.stem] = {"key": key, "library": lib, "log": _log_path(src, key),
+                         "seconds": None}
+        if lib.exists():
+            record_serving("compile_hit_disk")
+        else:
+            todo.append((src, key))
+    if not todo:
+        return out
+    t0 = time.perf_counter()
+    jobs = [(src, _lib_path(src, key).with_suffix(f".{os.getpid()}.tmp"), nvcc)
+            for src, key in todo]
+    errors, built = [], {}
+    for (src, key), (_s, tmp, _n), (rc, text) in zip(todo, jobs, _compile(jobs)):
+        if rc != 0:
+            errors.append(f"nvcc failed for {src.name} (rc {rc}):\n{text}")
+            continue
+        _log_path(src, key).write_text(text)
+        os.replace(tmp, _lib_path(src, key))
+        record_serving("kernel_built")
+        out[src.stem]["seconds"] = time.perf_counter() - t0
+        built[key] = {"name": src.stem, "library": _lib_path(src, key).name,
+                      "flags": NVCC_FLAGS, "nvcc": version.splitlines()[-1],
+                      "capability": capability, "built_at": time.time()}
+    if built:
+        _record_manifest(built)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def build() -> Dict[str, dict]:
+    """Find or build every kernel library now (no nvcc for a library whose
+    key is on disk). Returns {name: {"seconds": compile seconds, or None
+    when it was on disk, "key": the build key, "library": its path,
+    "ptxas": per-kernel registers, shared memory and spills}}."""
+    with _build_lock:
+        found = _ensure_built_locked()
+    return {
+        name: {
+            "seconds": b["seconds"], "key": b["key"], "library": str(b["library"]),
+            "ptxas": parse_ptxas(b["log"].read_text()) if b["log"].exists() else [],
+        }
+        for name, b in found.items()
+    }
+
+
+def prewarm(config, device=None) -> int:
+    """Load every kernel library for the card before the first query (the
+    JAX package's ops/aotcache.py::prewarm; an ExecutionContext calls it
+    when ballista.tpu.prewarm is set). Returns the number of libraries
+    loaded by this call, each counting "compile_prewarmed". On a CPU device
+    it returns 0 and touches no nvcc. On a card a library that fails to
+    build or load raises: a broken kernel is never skipped."""
+    import torch
+
+    del config  # the libraries depend on the sources and the card only
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return 0
+    from ballista_tpu_torch.ops.runtime import record_serving
+
+    loaded = 0
+    for src in _sources():
+        with _build_lock:
+            fresh = src.stem not in _libs
+        _load(src.stem)
+        if fresh:
+            loaded += 1
+            record_serving("compile_prewarmed")
+    return loaded
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -129,81 +306,26 @@ def parse_ptxas(text: str) -> List[dict]:
     return facts
 
 
-# holds-lock: _build_lock
-def _build_locked(names: Optional[List[str]] = None) -> Dict[str, float]:
-    """Compile the sources that are missing or stale, one nvcc process per
-    source, all started together. Returns {name: seconds} of what was
-    compiled; raises with the compiler's output when one fails."""
-    import time
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = []
-    for src in _sources():
-        if names is not None and src.stem not in names:
-            continue
-        lib = _lib_path(src)
-        newest = max(f.stat().st_mtime for f in [src, *CSRC.glob("*.cuh")])
-        if lib.exists() and lib.stat().st_mtime >= newest:
-            continue
-        todo.append(src)
-    if not todo:
-        return {}
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = []
-    for src in todo:
-        tmp = _lib_path(src).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    took: Dict[str, float] = {}
-    errors = []
-    for src, tmp, p in procs:
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {src.name} (rc {p.returncode}):\n{out}")
-            continue
-        _log_path(src).write_text(out)
-        os.replace(tmp, _lib_path(src))
-        took[src.stem] = time.perf_counter() - t0
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return took
-
-
-def build() -> Dict[str, dict]:
-    """Build every kernel source now (a no-op for up-to-date libraries).
-    Returns {name: {"seconds": compile seconds, or None when it was up to
-    date, "ptxas": per-kernel registers, shared memory and spills}}."""
-    with _build_lock:
-        took = _build_locked()
-    return {
-        src.stem: {
-            "seconds": took.get(src.stem),
-            "ptxas": parse_ptxas(_log_path(src).read_text()) if _log_path(src).exists() else [],
-        }
-        for src in _sources()
-    }
-
-
 def _load(name: str) -> ctypes.CDLL:
+    from ballista_tpu_torch.ops.runtime import record_serving
+
     with _build_lock:
         lib = _libs.get(name)
-        if lib is None:
-            _build_locked([name])
-            path = BUILD_DIR / f"lib{name}.so"
-            if not path.exists():
-                raise RuntimeError(f"kernel library {path} was not built")
-            lib = ctypes.CDLL(str(path))
-            _bind(name, lib)
-            if (name == "sorted_grouped_sum"
-                    and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
-                raise RuntimeError(
-                    f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
-                    f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
-                )
-            _libs[name] = lib
+        if lib is not None:
+            record_serving("compile_hit_memory")
+            return lib
+        path = _ensure_built_locked([name])[name]["library"]
+        if not path.exists():
+            raise RuntimeError(f"kernel library {path} was not built")
+        lib = ctypes.CDLL(str(path))
+        _bind(name, lib)
+        if (name == "sorted_grouped_sum"
+                and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
+            raise RuntimeError(
+                f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
+                f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
+            )
+        _libs[name] = lib
         return lib
 
 

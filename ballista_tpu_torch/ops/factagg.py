@@ -62,6 +62,7 @@ from ballista_tpu_torch.ops.runtime import (
     readback,
     record_route,
     record_routing_event,
+    touch_residency,
     upload,
     widen_cols,
 )
@@ -798,6 +799,7 @@ class FactAggregateStage:
         with self.inner._prepare_lock:
             ent = self._prepared.get(partition)
             if ent is not None:
+                touch_residency(self, partition)  # LRU recency for eviction
                 return ent
             return self._prepare_locked(partition, ctx)
 

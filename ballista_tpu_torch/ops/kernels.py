@@ -13,6 +13,13 @@ the ladder's final verdict is a decline: the dispatcher records it
 (runtime.record_route("host", reason)) and returns None, and the operator
 runs its host Arrow path, which gives the same answer.
 
+The cache key (stage_identity) is the plan display, the leaf files and
+their mtimes, the config flags, the device and a non-default batch size.
+A fully file-backed stage also gets it as its persist_key (the persisted
+layout cache, ops/layout_cache.py) and a chunk-set delta base. Each stage
+run is a cost observation, "stage.run|<sha1 of the stable key>", and a
+"stage:device" routing decision.
+
 It also holds the device join's admission tiers (the static multiplicity
 ladder and the cost model's extended tiers) and filter_batch, the
 per-batch device filter of a FilterExec outside any fused stage.
@@ -200,10 +207,15 @@ def clear_stage_cache() -> None:
         _stage_latest.clear()
 
 
-def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
-    """Build-or-fetch the device stage for one aggregate node without
-    running it. Returns (stage, key): `stage` is False when the shape
-    permanently declined to the host path (cached verdict included)."""
+def stage_identity(exec_node, ctx) -> dict:
+    """The stage cache's identity of one aggregate node: {"key" (plan
+    display + leaf files + config flags + mtimes), "stable" (the key
+    without the mtimes), "chunk_base" (plan display + flags: the chunk-set
+    delta base), "unit_size" (leaf file bytes, or memory-scan rows: the
+    units of the stage.run cost observation), "file_backed" (every leaf is
+    a file set whose mtimes cover it), "pinned" (memory-scan sources the
+    key names by id())}."""
+    from ballista_tpu_torch.config import BALLISTA_BATCH_SIZE, DEFAULT_SETTINGS
     from ballista_tpu_torch.physical.scan import MemoryScanExec
 
     def leaves(node):
@@ -215,17 +227,36 @@ def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
     parts = []
     mtimes = []
     pinned = []
+    unit_size = 0.0
+    # persisted-layout eligibility: every leaf's data identity must be a
+    # file set with covering mtimes; any other leaf would leave the key
+    # constant across data changes, and a disk hit could serve stale tiles
+    file_backed = True
     for leaf in leaves(exec_node):
         if isinstance(leaf, MemoryScanExec):
             # memory scans carry no identity in their display
             parts.append(str(id(leaf.source)))
             pinned.append(leaf.source)
+            unit_size += float(sum(
+                b.num_rows for part in getattr(leaf.source, "partitions", ())
+                for b in part
+            ))
         elif hasattr(leaf, "source") and hasattr(leaf.source, "files"):
             # file mtimes invalidate the cached stage (and its resident
             # columns) when a file is rewritten
             parts.extend(leaf.source.files)
             for f in leaf.source.files:
-                mtimes.append(str(os.path.getmtime(f)) if os.path.exists(f) else "0")
+                if os.path.exists(f):
+                    mtimes.append(str(os.path.getmtime(f)))
+                    try:
+                        unit_size += float(os.path.getsize(f))
+                    except OSError:
+                        pass
+                else:
+                    mtimes.append("0")
+                    file_backed = False
+        else:
+            file_backed = False
     # config flags and the device participate in the key: a decline under
     # one config must not pin the device path off for another, and a stage
     # holds tensors on exactly one device
@@ -236,8 +267,33 @@ def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
     )
     if getattr(exec_node, "exact_floats", False):
         flags += ",ef=True"
-    stable = exec_node.display_indent() + "|" + ",".join(parts) + "|" + flags
-    key = stable + "|" + ",".join(mtimes)
+    # the batch size, appended only when it is not the default: a persisted
+    # layout's tile granularity follows it, so two batch sizes are two keys
+    # (and two sets of store entries)
+    if ctx.batch_size != int(DEFAULT_SETTINGS[BALLISTA_BATCH_SIZE]):
+        flags += f",bs={ctx.batch_size}"
+    display = exec_node.display_indent()
+    stable = display + "|" + ",".join(parts) + "|" + flags
+    # the chunk-set delta base leaves out the row-transparent MergeExec
+    # that a second file adds to the plan: a chunk's host arrays depend on
+    # its file and the fused chain's expressions, not on how many files
+    # the directory holds, so a directory that grows from one file to two
+    # reuses the first file's chunks (the JAX package's base keeps the
+    # MergeExec line and re-prepares them; ROADMAP differences by design)
+    chain = " / ".join(line.strip() for line in display.splitlines()
+                       if line.strip() != "MergeExec")
+    return {"key": stable + "|" + ",".join(mtimes), "stable": stable,
+            "chunk_base": chain + "|" + flags, "unit_size": unit_size,
+            "file_backed": file_backed, "pinned": pinned}
+
+
+def resolve_stage(exec_node, ctx) -> Tuple[object, str, str, float]:
+    """Build-or-fetch the device stage for one aggregate node without
+    running it. Returns (stage, key, stable, unit_size) of stage_identity:
+    `stage` is False when the shape permanently declined to the host path
+    (cached verdict included)."""
+    ident = stage_identity(exec_node, ctx)
+    key, stable, pinned = ident["key"], ident["stable"], ident["pinned"]
     with _stage_cache_lock:
         stage = _stage_cache.get(key)
         if stage is None:
@@ -257,16 +313,29 @@ def resolve_stage(exec_node, ctx) -> Tuple[object, str]:
         except UnsupportedOnDevice as e:
             record_route("host", f"stage build: {e}")
             built = False
+        # persisted layouts only for fully file-backed stages: memory-scan
+        # keys embed id(), which another process could reuse for other
+        # data, and a leaf without mtimes leaves the key constant
+        if built is not False and not pinned and ident["file_backed"]:
+            # the chunk-set delta base: the plan display names the scan
+            # directory, not the file list, so it stays the same across
+            # appends. A fact stage's inner stage prepares, so it gets both
+            for st in (built, getattr(built, "inner", None)):
+                if st is not None:
+                    st.persist_key = key
+                    st.chunk_key_base = ident["chunk_base"]
         with _stage_cache_lock:
             stage = _stage_cache.get(key)
             if stage is None:
                 _stage_cache[key] = built
                 _stage_cache_pins[key] = pinned
                 stage = built
-    return stage, key
+    return stage, key, stable, ident["unit_size"]
 
 
 def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
+    import hashlib
+
     from ballista_tpu_torch.ops import costmodel
 
     # bind the cost model from this dispatch's config before any path that
@@ -281,11 +350,16 @@ def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
         counted = try_count_left_join(exec_node, partition, ctx)
         if counted is not None:
             return counted
-    stage, key = resolve_stage(exec_node, ctx)
+    stage, key, stable, unit_size = resolve_stage(exec_node, ctx)
     if stage is False:
         return None
     try:
-        return stage.run(partition, ctx)
+        # the run is a cost-store observation keyed on the stable stage
+        # identity, and a recorded routing decision ("stage:device");
+        # units are the input size, so the learned rate scales with it
+        op = "stage.run|" + hashlib.sha1(stable.encode()).hexdigest()[:12]
+        with costmodel.timed(op, units=max(1.0, unit_size), routing_op="stage"):
+            return stage.run(partition, ctx)
     except UnsupportedOnDevice as e:
         # permanently declined: free its resident columns and their budget
         # reservations before dropping the stage, and say why

@@ -124,13 +124,32 @@ class ScanDictionaries:
 
 
 # -- device residency accounting -------------------------------------------
-# One card's memory is shared by every cached stage. A prepared partition
-# stays resident only while the total fits ballista.tpu.hbm_budget_bytes;
-# past it the partition streams (uploaded, run, dropped) per query. There is
-# no LRU eviction in this package yet: first come, first pinned.
+# One card's memory is shared by every cached stage (the JAX package's
+# policy, ops/runtime.py:125-361). When a new partition would push the total
+# past ballista.tpu.hbm_budget_bytes, other stages' least recently used pins
+# are evicted to make room (they re-prepare on their next touch); only an
+# entry that cannot fit even after eviction streams (uploaded, run, dropped)
+# per query. A stage the dispatcher drops releases its reservations.
 _res_lock = threading.Lock()
 _resident_bytes = 0  # guarded-by: _res_lock
 _reservations: Dict[tuple, int] = {}  # (id(stage), partition) -> bytes; guarded-by: _res_lock
+_pinned: Dict[tuple, tuple] = {}  # token -> (stage, partition); guarded-by: _res_lock
+_last_used: Dict[tuple, float] = {}  # token -> monotonic last touch; guarded-by: _res_lock
+# what reserve_and_pin decided: "pins" (a new reservation), "evictions"
+# (another stage's partition dropped to make room) and "streams" (an entry
+# that could not stay resident)
+_residency_counts = {"pins": 0, "evictions": 0, "streams": 0}  # guarded-by: _res_lock
+
+# refuse an eviction plan that frees more than this multiple of the bytes
+# requested: re-uploading a large pin to admit a small one costs more than
+# the newcomer streaming would, and two such stages alternating would thrash
+_EVICT_COST_RATIO = 4
+# a stage evicted within this window is immune from re-eviction: in an
+# A, B, A, B pattern where A and B fit alone but not together, plain LRU
+# would re-prepare on every query; after one thrash cycle the cooldown keeps
+# the survivor pinned and the other streams
+_EVICT_COOLDOWN_S = 60.0
+_evicted_at: Dict[int, float] = {}  # id(stage) -> last eviction; guarded-by: _res_lock
 
 
 def entry_device_bytes(obj) -> int:
@@ -159,34 +178,152 @@ def check_budget(nbytes: int, budget: int, what: str) -> None:
 def reserve_and_pin(stage, partition: int, entry, cache: dict, nbytes: int,
                     budget: int) -> bool:
     """Reserve budget for a prepared partition and insert it into the
-    stage's cache dict. Returns False (the partition streams) when it does
-    not fit beside what is already resident, or the stage was retired."""
+    stage's cache dict, refusing retired stages. When the budget is full,
+    other stages' pins are evicted least recently used first until the
+    entry fits (_evict_lru_locked); the requesting stage's own pins are
+    never victims. Returns False (the partition streams) when it cannot
+    fit. The retired check, the reservation and the insert happen under the
+    lock release_stage_residency holds, so no reservation can outlive its
+    stage."""
     global _resident_bytes
     token = (id(stage), partition)
     with _res_lock:
         if getattr(stage, "_retired", False):
+            _residency_counts["streams"] += 1
             return False
         if token not in _reservations:
+            if nbytes > budget:
+                # can never fit: do not disturb other pins
+                _residency_counts["streams"] += 1
+                return False
             if _resident_bytes + nbytes > budget:
+                _evict_lru_locked(stage, nbytes, budget)
+            if _resident_bytes + nbytes > budget:
+                _residency_counts["streams"] += 1
                 return False
             _reservations[token] = nbytes
             _resident_bytes += nbytes
+            _pinned[token] = (stage, partition)
+            _residency_counts["pins"] += 1
+        _last_used[token] = time.monotonic()
         cache[partition] = entry
         return True
 
 
+# holds-lock: _res_lock
+def _evict_lru_locked(requesting_stage, nbytes: int, budget: int) -> None:
+    """Evict other stages' pinned partitions, oldest touch first, until
+    `nbytes` fits. The requesting stage's own entries are never victims,
+    stages evicted within _EVICT_COOLDOWN_S are immune, and the plan is
+    abandoned (nothing evicted) when it cannot fit the request or would
+    free more than _EVICT_COST_RATIO times it. Eviction drops only the cache
+    entry: a task thread inside the victim's step keeps its tensors."""
+    global _resident_bytes
+    now = time.monotonic()
+    for sid in [s for s, ts in _evicted_at.items() if now - ts > _EVICT_COOLDOWN_S]:
+        del _evicted_at[sid]
+    candidates = sorted(
+        (t for t, (s, _p) in _pinned.items()
+         if s is not requesting_stage and id(s) not in _evicted_at),
+        key=lambda t: _last_used.get(t, 0.0),
+    )
+    need = _resident_bytes + nbytes - budget
+    chosen, freed = [], 0
+    for t in candidates:
+        if freed >= need:
+            break
+        size = _reservations.get(t, 0)
+        if size > _EVICT_COST_RATIO * nbytes:
+            continue  # a huge victim for a small need stays resident
+        chosen.append(t)
+        freed += size
+    if freed < need or freed > _EVICT_COST_RATIO * nbytes:
+        return
+    for t in chosen:
+        victim, p = _pinned.pop(t)
+        _evicted_at[id(victim)] = now
+        _last_used.pop(t, None)
+        _resident_bytes -= _reservations.pop(t, 0)
+        _residency_counts["evictions"] += 1
+        # fused stages pin into _device_cache, fact stages into _prepared
+        for attr in ("_device_cache", "_prepared"):
+            c = getattr(victim, attr, None)
+            if c is not None:
+                c.pop(p, None)
+
+
+def make_headroom(stage, nbytes: int, budget: int) -> None:
+    """Best-effort LRU eviction before a large upload: reserve_and_pin
+    evicts only after the transfer, too late when other stages' pins plus
+    the incoming tensors would exceed the card's memory."""
+    with _res_lock:
+        if _resident_bytes + nbytes > budget:
+            _evict_lru_locked(stage, nbytes, budget)
+
+
+def touch_residency(stage, partition: int) -> None:
+    """Record a cache hit for LRU ordering. Only live pins are refreshed: a
+    racing eviction may have dropped the token already."""
+    token = (id(stage), partition)
+    with _res_lock:
+        if token in _pinned:
+            _last_used[token] = time.monotonic()
+
+
+def release_residency(token) -> None:
+    """Drop one reservation by its (id(stage), partition) token."""
+    global _resident_bytes
+    with _res_lock:
+        _resident_bytes -= _reservations.pop(token, 0)
+        _pinned.pop(token, None)
+        _last_used.pop(token, None)
+
+
 def release_stage_residency(stage) -> None:
     """Drop a stage's cached device entries and their reservations (the
-    dispatcher calls this when it permanently declines a stage)."""
+    dispatcher calls this when it permanently declines or supersedes a
+    stage). The retired flag and the sweep are one step under the lock."""
     global _resident_bytes
     with _res_lock:
         stage._retired = True
-        # fused stages pin into _device_cache, fact stages into _prepared
-        cache = getattr(stage, "_device_cache", None) or getattr(stage, "_prepared", None)
-        if cache:
-            for p in list(cache):
-                _resident_bytes -= _reservations.pop((id(stage), p), 0)
-            cache.clear()
+        for attr in ("_device_cache", "_prepared"):
+            cache = getattr(stage, attr, None)
+            if cache:
+                for p in list(cache):
+                    token = (id(stage), p)
+                    _resident_bytes -= _reservations.pop(token, 0)
+                    _pinned.pop(token, None)
+                    _last_used.pop(token, None)
+                cache.clear()
+
+
+def resident_bytes() -> int:
+    with _res_lock:
+        return _resident_bytes
+
+
+def residency_stats(reset: bool = False) -> Dict[str, int]:
+    """{"pins", "evictions", "streams"}: reserve_and_pin's decisions."""
+    with _res_lock:
+        out = dict(_residency_counts)
+        if reset:
+            for k in _residency_counts:
+                _residency_counts[k] = 0
+    return out
+
+
+def reset_residency() -> None:
+    """Forget every reservation, pin, recency and cooldown (a fresh
+    process; the stages' cache dicts are the caller's to clear)."""
+    global _resident_bytes
+    with _res_lock:
+        _resident_bytes = 0
+        _reservations.clear()
+        _pinned.clear()
+        _last_used.clear()
+        _evicted_at.clear()
+        for k in _residency_counts:
+            _residency_counts[k] = 0
 
 
 def bucket_rows(n: int, minimum: int = 1024) -> int:
@@ -463,6 +600,51 @@ def ingest_stats(reset: bool = False) -> Dict[str, float]:
         if reset:
             for k in _ingest_totals:
                 _ingest_totals[k] = 0.0 if k != "prepares" else 0
+    return out
+
+
+# incremental execution over the chunk-set delta store (ops/stage.py,
+# _prepare_partition_chunks), with the JAX package's event names:
+# "chunks_reused" (chunks loaded from the store), "chunks_prepared"
+# (chunks prepared fresh), "bytes_reprepared_saved" (host bytes of the
+# reused chunks) and "save_declined_midappend" (a file whose identity moved
+# between the stat and the read was not persisted)
+_delta_lock = threading.Lock()
+_delta: Dict[str, int] = {}  # guarded-by: _delta_lock
+
+
+def record_delta(event: str, n: int = 1) -> None:
+    with _delta_lock:
+        _delta[event] = _delta.get(event, 0) + int(n)
+
+
+def delta_stats(reset: bool = False) -> Dict[str, int]:
+    with _delta_lock:
+        out = dict(_delta)
+        if reset:
+            _delta.clear()
+    return out
+
+
+# kernel library events (ops/cuda_kernels.py), named as the JAX package's
+# program cache names them where the meaning is the same:
+# "compile_hit_memory" (the library was loaded in this process),
+# "compile_hit_disk" (a keyed library from the build directory, no nvcc),
+# "compile_prewarmed" (loaded by prewarm) and "kernel_built" (one nvcc run)
+_serving_lock = threading.Lock()
+_serving: Dict[str, int] = {}  # guarded-by: _serving_lock
+
+
+def record_serving(event: str, n: int = 1) -> None:
+    with _serving_lock:
+        _serving[event] = _serving.get(event, 0) + int(n)
+
+
+def serving_stats(reset: bool = False) -> Dict[str, int]:
+    with _serving_lock:
+        out = dict(_serving)
+        if reset:
+            _serving.clear()
     return out
 
 

@@ -36,7 +36,16 @@ The "sorted" route also serves composers: the fact-aggregate stage
 ``sorted_step`` inside its own device steps, and the mapped-scan rewrite
 (ops/mappedscan.py) hands this stage a join tree as one row source.
 
-Not ported yet: the persisted layout cache (ops/layout_cache.py).
+Persisted layouts (ops/layout_cache.py): with a store configured, a fully
+file-backed stage saves the host arrays of every fresh prepare (narrow
+tiles, LUTs, codes, key values, dictionary snapshots; never tensors) and a
+later process loads them straight into the upload. A Parquet "batches"
+stage persists per chunk of each file (the chunk-set delta store), so an
+appended file re-prepares only its own chunks. A hit feeds the same
+device step as a cold prepare, so its answers are bit-equal. Residency
+follows the JAX package: pins are LRU-evicted for other stages
+(ops/runtime.py::reserve_and_pin), and every large upload first makes
+room (make_headroom).
 
 Readback: the "batches" route reads int32 and float32 state rows back as two
 transfers per run; the "sorted" route and the top-k epilogue read one int32
@@ -60,6 +69,7 @@ from ballista_tpu_torch.ops.runtime import (
     bucket_rows,
     check_budget,
     column_to_numpy,
+    make_headroom,
     narrow_column,
     pad_to,
     readback,
@@ -275,6 +285,85 @@ def state_column(a, raw: np.ndarray, target: pa.DataType,
     return arr
 
 
+def _pack_staged(staged: Dict, arrays: List[np.ndarray]) -> Dict[str, dict]:
+    """Append a staged {idx: (tiles, lut, choice)} dict's arrays to an
+    entry's array list; returns the JSON column manifest."""
+    cols_meta: Dict[str, dict] = {}
+    for idx, (tiles, lut, choice) in staged.items():
+        spec = {"tiles": len(arrays), "choice": choice, "lut": None}
+        arrays.append(tiles)
+        if lut is not None:
+            spec["lut"] = len(arrays)
+            arrays.append(lut)
+        cols_meta[str(idx)] = spec
+    return cols_meta
+
+
+def _unpack_staged(cols_meta: Dict[str, dict], arrays: List[np.ndarray],
+                   narrow_choice: Dict) -> Optional[Tuple[Dict, int]]:
+    """Inverse of _pack_staged: (staged dict, host bytes), or None when a
+    persisted narrow choice conflicts with one the stage already made (its
+    later batches would disagree on a column's dtype)."""
+    staged: Dict[int, tuple] = {}
+    total = 0
+    for k, spec in cols_meta.items():
+        idx = int(k)
+        tiles = arrays[spec["tiles"]]
+        lut = arrays[spec["lut"]] if spec["lut"] is not None else None
+        cur = narrow_choice.get(idx)
+        if cur is not None and cur != spec["choice"]:
+            return None
+        staged[idx] = (tiles, lut, spec["choice"])
+        total += tiles.nbytes + (0 if lut is None else lut.nbytes)
+    return staged, total
+
+
+def _record_meta(rec: dict, arrays: List[np.ndarray]) -> dict:
+    """A staged "batches" record's manifest, its arrays appended to
+    `arrays` (the whole-set entry and the chunk entries share it)."""
+    from ballista_tpu_torch.ops import layout_cache as lc
+
+    m = {"n_groups": rec["n_groups"], "seg_bucket": rec["seg_bucket"],
+         "cols": _pack_staged(rec["staged"], arrays)}
+    for name, arr in (("codes", rec["codes_pad"]), ("row_valid", rec["row_valid"]),
+                      ("keys", lc.pack_arrow_arrays(rec["key_values"]))):
+        m[name] = len(arrays)
+        arrays.append(arr)
+    return m
+
+
+def _record_from_meta(m: dict, arrays: List[np.ndarray],
+                      narrow_choice: Dict) -> Optional[dict]:
+    """Inverse of _record_meta: the staged record with its host bytes under
+    "nbytes", or None on a narrow-choice conflict."""
+    from ballista_tpu_torch.ops import layout_cache as lc
+
+    unpacked = _unpack_staged(m["cols"], arrays, narrow_choice)
+    if unpacked is None:
+        return None
+    staged, nbytes = unpacked
+    codes, row_valid = arrays[m["codes"]], arrays[m["row_valid"]]
+    return {
+        "n_groups": int(m["n_groups"]), "seg_bucket": int(m["seg_bucket"]),
+        "staged": staged, "codes_pad": codes, "row_valid": row_valid,
+        "key_values": lc.unpack_arrow_arrays(arrays[m["keys"]]),
+        "nbytes": nbytes + codes.nbytes + row_valid.nbytes,
+    }
+
+
+def _upload_staged(staged: Dict, choices: Dict, device) -> Dict:
+    """Upload staged (array, lut, choice) columns, recording each narrow
+    choice and dropping each host array from `staged` once its device copy
+    exists. A LUT column becomes the (codes, lut) pair widen_cols reads."""
+    cols: Dict = {}
+    for idx in list(staged):
+        arr, lut, choice = staged.pop(idx)
+        choices[idx] = choice
+        col = upload(arr, device)
+        cols[idx] = col if lut is None else (col, upload(lut, device))
+    return cols
+
+
 class FusedAggregateStage:
     """Device pipeline for one HashAggregateExec (partial phase)."""
 
@@ -468,6 +557,15 @@ class FusedAggregateStage:
         # array, materialized as extra [V, L1] tiles in entry["derived"].
         self.sorted_cover_max = False
         self.derive_columns: Dict[str, Callable] = {}
+        # the stage cache key (plan display + scan files + mtimes + config
+        # flags), set by kernels.resolve_stage for fully file-backed stages
+        # only; keys the persisted layout cache (ops/layout_cache.py)
+        self.persist_key: Optional[str] = None
+        # the chunk-set delta base: plan display + config flags, without the
+        # file list and mtimes, set beside persist_key. Each prepared chunk
+        # persists under it plus its own (path, mtime, size, chunk index),
+        # so an appended file re-prepares only its own chunks
+        self.chunk_key_base: Optional[str] = None
         from ballista_tpu_torch.ops.mappedscan import MappedScanExec
 
         # a join tree rewritten to a mapped fact scan (ops/mappedscan.py):
@@ -890,6 +988,13 @@ class FusedAggregateStage:
         group codes, lower, narrow, pad, upload. Returns per-batch device
         entries (the tensors stay resident in the stage's cache).
 
+        With a layout store (ops/layout_cache.py) and a persist key, the
+        staged host arrays persist too: a Parquet scan with a delta identity
+        goes through the chunk-set store (_prepare_partition_chunks); any
+        other file-backed source saves one whole-set "batches" entry at the
+        end (_save_batches_layout), holding a host copy of every batch's
+        tiles until then.
+
         Pipelined (ballista.tpu.ingest_workers > 0): parquet read +
         dictionary decode + group ranking run on a small thread pool, at
         most ingest_depth batches ahead of the in-order consume side
@@ -900,15 +1005,19 @@ class FusedAggregateStage:
 
         from ballista_tpu_torch.ops.runtime import pipelined_map, record_ingest
 
-        dev = self.device
+        persisting = bool(self._store(ctx)) and self.persist_key is not None
+        if (persisting and self.chunk_key_base is not None
+                and isinstance(self.scan, ParquetScanExec)):
+            return self._prepare_partition_chunks(partition, ctx)
         t_wall0 = _time.perf_counter()
         scan_s = encode_s = upload_s = 0.0
         src_times: List[float] = []  # appended by the reader thread only
+        records: List[dict] = []
         entries: List[dict] = []
         # all of a partition's batch entries are live on the device at once
         # during run(); past the budget the stage declines to the host
         budget = ctx.config.tpu_hbm_budget()
-        total_bytes = 0
+        totals = {"bytes": 0}
 
         def _prefetch(batch: pa.RecordBatch):
             # group codes FIRST: a high-cardinality switch must not pay the
@@ -926,54 +1035,336 @@ class FusedAggregateStage:
             on_src_time=src_times.append,
         ):
             scan_s += dt
-            n = batch.num_rows
-            bucket = bucket_rows(n)
             if n_groups == 0:
                 continue
-            if n_groups > MAX_GROUPS:
-                raise TooManyGroups(f"{n_groups} groups exceeds the batches route")
             t_enc0 = _time.perf_counter()
-            npcols = self._lower_columns(batch)
-            self._check_int_ranges(npcols, n)
-            staged: Dict[int, tuple] = {}
-            for idx in list(npcols):
-                npcol = npcols.pop(idx)
-                fill = False if npcol.dtype == np.bool_ else 0
-                narrow, lut, choice = narrow_column(
-                    npcol, self._narrow_choice.get(idx)
-                )
-                del npcol
-                padded = pad_to(narrow, bucket, fill)
-                staged[idx] = (padded, lut, choice)
-                total_bytes += padded.nbytes + (0 if lut is None else lut.nbytes)
-            total_bytes += 3 * bucket  # int16 codes + bool row_valid
-            check_budget(total_bytes, budget, "stage batches")
-            seg_bucket = bucket_rows(n_groups, 16) + 1  # +1 dump slot
-            # group codes fit int16 by construction (n_groups <= MAX_GROUPS)
-            codes_pad = pad_to(codes.astype(np.int16), bucket, 0)
-            row_valid = np.zeros(bucket, dtype=np.bool_)
-            row_valid[:n] = True
+            rec = self._stage_batch(batch, codes, key_values, n_groups, totals, budget)
             encode_s += _time.perf_counter() - t_enc0
+            if persisting:
+                records.append({**rec, "staged": dict(rec["staged"])})
             t_up0 = _time.perf_counter()
-            cols: Dict = {}
-            for idx, (arr, lut, choice) in staged.items():
-                self._narrow_choice[idx] = choice
-                col = upload(arr, dev)
-                cols[idx] = col if lut is None else (col, upload(lut, dev))
-            entries.append(
-                {
-                    "n_groups": int(n_groups),
-                    "seg_bucket": int(seg_bucket),
-                    "cols": cols,
-                    "codes": upload(codes_pad, dev),
-                    "row_valid": upload(row_valid, dev),
-                    "key_values": key_values,
-                }
-            )
+            entries.append(self._upload_record(rec, budget, totals))
             upload_s += _time.perf_counter() - t_up0
+        if persisting and records:
+            t_save0 = _time.perf_counter()
+            self._save_batches_layout(partition, ctx, records)
+            # the store write is host prepare work: counted as encode
+            encode_s += _time.perf_counter() - t_save0
         scan_s += sum(src_times)
         record_ingest(scan_s, encode_s, upload_s, _time.perf_counter() - t_wall0)
         return entries
+
+    def _stage_batch(self, batch: pa.RecordBatch, codes: np.ndarray, key_values,
+                     n_groups: int, totals: dict, budget: int) -> dict:
+        """Host staging of one "batches" batch: lower, range-check, narrow
+        and pad every used column, and pad the group codes. Adds the bytes
+        to totals["bytes"] and declines past the budget. Returns the record
+        that _upload_record uploads and the store persists."""
+        if n_groups > MAX_GROUPS:
+            # run() retries with the sorted chunked-segment layout
+            raise TooManyGroups(f"{n_groups} groups exceeds the batches route")
+        n = batch.num_rows
+        bucket = bucket_rows(n)
+        npcols = self._lower_columns(batch)
+        self._check_int_ranges(npcols, n)
+        staged: Dict[int, tuple] = {}
+        for idx in list(npcols):
+            npcol = npcols.pop(idx)
+            fill = False if npcol.dtype == np.bool_ else 0
+            narrow, lut, choice = narrow_column(npcol, self._narrow_choice.get(idx))
+            del npcol
+            padded = pad_to(narrow, bucket, fill)
+            staged[idx] = (padded, lut, choice)
+            totals["bytes"] += padded.nbytes + (0 if lut is None else lut.nbytes)
+        totals["bytes"] += 3 * bucket  # int16 codes + bool row_valid
+        check_budget(totals["bytes"], budget, "stage batches")
+        row_valid = np.zeros(bucket, dtype=np.bool_)
+        row_valid[:n] = True
+        return {
+            "n_groups": int(n_groups),
+            "seg_bucket": int(bucket_rows(n_groups, 16) + 1),  # +1 dump slot
+            "staged": staged,
+            # group codes fit int16 by construction (n_groups <= MAX_GROUPS)
+            "codes_pad": pad_to(codes.astype(np.int16), bucket, 0),
+            "row_valid": row_valid,
+            "key_values": key_values,
+        }
+
+    def _upload_record(self, rec: dict, budget: int, totals: dict) -> dict:
+        """One staged batch record (fresh or loaded from the store) -> its
+        device entry, after making room for the stage's bytes so far."""
+        make_headroom(self, totals["bytes"], budget)
+        dev = self.device
+        return {
+            "n_groups": rec["n_groups"],
+            "seg_bucket": rec["seg_bucket"],
+            "cols": _upload_staged(rec["staged"], self._narrow_choice, dev),
+            "codes": upload(rec["codes_pad"], dev),
+            "row_valid": upload(rec["row_valid"], dev),
+            "key_values": rec["key_values"],
+        }
+
+    @staticmethod
+    def _store(ctx) -> str:
+        """The port's layout store for this context, "" when persistence is
+        off (ops/layout_cache.py::store_dir)."""
+        from ballista_tpu_torch.ops import layout_cache as lc
+
+        return lc.store_dir(ctx.config)
+
+    def _save_batches_layout(self, partition: int, ctx, records: List[dict]) -> None:
+        """Best-effort persist of the "batches" route's staged batches as
+        one whole-set entry (non-Parquet file-backed sources)."""
+        from ballista_tpu_torch.ops import layout_cache as lc
+
+        arrays: List[np.ndarray] = []
+        metas = [_record_meta(rec, arrays) for rec in records]
+        dmeta, darrays = lc.pack_dict_snapshot(self.dicts)
+        offset = len(arrays)
+        meta = {
+            "kind": "batches",
+            "batches": metas,
+            "dicts": {k: v + offset for k, v in dmeta.items()},
+        }
+        arrays.extend(darrays)
+        meta["n_arrays"] = len(arrays)
+        lc.save_entry(self._store(ctx), self.persist_key, partition, meta,
+                      arrays, ctx.config.tpu_layout_cache_cap())
+
+    # -- chunk-set delta store --------------------------------------------
+    # A whole-set "batches" entry keys on (plan, file set, mtimes), so
+    # appending one Parquet file to a growing directory would orphan it and
+    # re-pay the whole prepare. Here each prepared chunk persists under its
+    # own identity, (path, mtime, size, chunk index) beneath the mtime-free
+    # chunk_key_base: a query over files + {new} re-prepares only the new
+    # file's chunks and loads every existing tile byte for byte.
+
+    def _chunk_context(self) -> str:
+        """Hash of the cross-file prepare state a chunk's tiles bake in: the
+        sticky narrow choices and every string dictionary's code->value
+        mapping as they stood when the file's first chunk was consumed. A
+        file set whose order puts a new file before an old one shifts the
+        old file's dictionary codes; keying on the context makes that a
+        clean miss (one re-prepare) instead of a poisoned hit."""
+        import hashlib
+
+        h = hashlib.sha256()
+        for k in sorted(self._narrow_choice, key=str):
+            h.update(f"n|{k}={self._narrow_choice[k]}\x00".encode())
+        for idx in sorted(self.dicts.dicts):
+            snap = self.dicts.dicts[idx].snapshot()
+            if snap is None:
+                continue
+            h.update(f"d|{idx}\x00".encode())
+            for v in snap.to_pylist():
+                h.update(repr(v).encode())
+                h.update(b"\x00")
+        return h.hexdigest()[:20]
+
+    def _chunk_stage_key(self, ident: Tuple[str, str, int], context: str) -> str:
+        path, mtime, size = ident
+        return f"chunk|{self.chunk_key_base}|ctx={context}|{path}|{mtime}|{size}"
+
+    # holds-lock: self._prepare_lock
+    def _prepare_partition_chunks(self, partition: int, ctx) -> List[dict]:
+        """Chunk-granular _prepare_partition for Parquet stages with a delta
+        identity: walk the partition's files in order, loading each file's
+        persisted chunks when its (path, mtime, size) identity and prepare
+        context match, preparing (and persisting) only the files that miss.
+        Batch order, and with it dictionary codes, narrow choices and the
+        device batch stream, is that of the whole-set prepare. The ingest
+        counters record a prepare only when some file was prepared fresh."""
+        import os
+        import time as _time
+
+        from ballista_tpu_torch.ops.runtime import record_delta, record_ingest
+
+        t_wall0 = _time.perf_counter()
+        if self.scan_stride is not None:
+            total = self.scan.output_partitioning().partition_count()
+            parts = range(partition, total, self.scan_stride)
+        else:
+            parts = [partition]
+        budget = ctx.config.tpu_hbm_budget()
+        entries: List[dict] = []
+        totals = {"bytes": 0, "scan_s": 0.0, "encode_s": 0.0, "upload_s": 0.0}
+        fresh = False
+        for p in parts:
+            path = self.scan.source.files[p]
+            try:
+                st = os.stat(path)
+                ident = (path, str(st.st_mtime), int(st.st_size))
+            except OSError:
+                ident = None
+            context = self._chunk_context()
+            loaded = (self._load_file_chunks(ident, context, ctx)
+                      if ident is not None else None)
+            if loaded is not None:
+                records, nbytes = loaded
+                totals["bytes"] += nbytes
+                check_budget(totals["bytes"], budget, "stage batches")
+                t_up0 = _time.perf_counter()
+                reused = 0
+                for rec in records:
+                    if rec is None:  # empty-chunk marker
+                        continue
+                    entries.append(self._upload_record(rec, budget, totals))
+                    reused += 1
+                totals["upload_s"] += _time.perf_counter() - t_up0
+                record_delta("chunks_reused", reused)
+                record_delta("bytes_reprepared_saved", nbytes)
+                continue
+            fresh = True
+            self._prepare_file_chunks(p, ident, context, ctx, entries, totals, budget)
+        if fresh:
+            record_ingest(totals["scan_s"], totals["encode_s"], totals["upload_s"],
+                          _time.perf_counter() - t_wall0)
+        return entries
+
+    def _load_file_chunks(self, ident, context: str, ctx):
+        """Load one file's persisted chunk set: (records in chunk order, None
+        marking an empty chunk; host bytes), or None on any miss.
+        All-or-nothing: every chunk must be present, carry the identity
+        stamped at save time and adopt its dictionary snapshot, else the
+        whole file re-prepares."""
+        from ballista_tpu_torch.ops import layout_cache as lc
+
+        base = self._store(ctx)
+        skey = self._chunk_stage_key(ident, context)
+        hit = lc.load_entry(base, skey, 0)
+        if hit is None:
+            return None
+        n_chunks = hit[0].get("n_chunks")
+        if not isinstance(n_chunks, int) or n_chunks < 1:
+            return None
+        records: List[Optional[dict]] = []
+        total = 0
+        for ci in range(n_chunks):
+            if hit is None:
+                hit = lc.load_entry(base, skey, ci)
+            if hit is None:
+                return None
+            meta, arrays = hit
+            hit = None
+            if (meta.get("kind") != "chunk" or meta.get("ident") != list(ident)
+                    or meta.get("n_chunks") != n_chunks):
+                return None
+            try:
+                if not lc.adopt_dict_snapshot(self.dicts, meta["dicts"], arrays):
+                    return None
+                if meta.get("empty"):
+                    records.append(None)
+                    continue
+                rec = _record_from_meta(meta, arrays, self._narrow_choice)
+            except Exception:
+                return None
+            if rec is None:
+                return None
+            total += rec.pop("nbytes")
+            records.append(rec)
+        return records, total
+
+    def _prepare_file_chunks(self, p: int, ident, context: str, ctx,
+                             entries: List[dict], totals: dict, budget: int) -> None:
+        """Prepare one file fresh, persisting each consumed chunk under its
+        own (path, mtime, size, chunk index) entry as it goes. The file is
+        statted again after the read: if its identity moved in between, the
+        bytes just decoded may not be the state `ident` describes, so the
+        save is declined (and counted); the in-memory prepare still uses
+        them."""
+        import os
+        import time as _time
+
+        from ballista_tpu_torch.ops import layout_cache as lc
+        from ballista_tpu_torch.ops.runtime import pipelined_map, record_delta
+
+        path = self.scan.source.files[p]
+        t0 = _time.perf_counter()
+        table = self._read_scan_file(path, ctx)
+        totals["scan_s"] += _time.perf_counter() - t0
+        save = ident is not None
+        if save:
+            try:
+                st = os.stat(path)
+                if (str(st.st_mtime), int(st.st_size)) != (ident[1], ident[2]):
+                    save = False
+                    record_delta("save_declined_midappend")
+            except OSError:
+                save = False
+        base = self._store(ctx)
+        cap = ctx.config.tpu_layout_cache_cap()
+        skey = self._chunk_stage_key(ident, context) if save else None
+        chunks = table.to_batches(max_chunksize=ctx.batch_size)
+        n_chunks = max(len(chunks), 1)
+
+        def _save_chunk(ci: int, rec: Optional[dict]) -> None:
+            if not save:
+                return
+            arrays: List[np.ndarray] = []
+            meta = {"kind": "chunk", "ident": list(ident), "n_chunks": n_chunks}
+            if rec is None:
+                meta["empty"] = True
+            else:
+                meta.update(_record_meta(rec, arrays))
+            # cumulative snapshot after this chunk's encode: a loader that
+            # adopted every earlier chunk in order holds exactly a prefix
+            dmeta, darrays = lc.pack_dict_snapshot(self.dicts)
+            offset = len(arrays)
+            meta["dicts"] = {k: v + offset for k, v in dmeta.items()}
+            arrays.extend(darrays)
+            meta["n_arrays"] = len(arrays)
+            lc.save_entry(base, skey, ci, meta, arrays, cap)
+
+        def _prefetch(item):
+            ci, batch = item
+            if batch.num_rows == 0:
+                return ci, batch, None, None, 0, 0.0
+            t0 = _time.perf_counter()
+            codes, key_values, n_groups = self._group_codes(batch)
+            return ci, batch, codes, key_values, n_groups, _time.perf_counter() - t0
+
+        for ci, batch, codes, key_values, n_groups, dt in pipelined_map(
+            iter(enumerate(chunks)), _prefetch,
+            ctx.config.tpu_ingest_workers(), ctx.config.tpu_ingest_depth(),
+        ):
+            totals["scan_s"] += dt
+            if batch.num_rows == 0 or n_groups == 0:
+                _save_chunk(ci, None)
+                continue
+            # TooManyGroups leaves a partial chunk set on disk; the
+            # all-chunks-present load check fails it closed
+            t_enc0 = _time.perf_counter()
+            rec = self._stage_batch(batch, codes, key_values, n_groups, totals, budget)
+            _save_chunk(ci, rec)
+            totals["encode_s"] += _time.perf_counter() - t_enc0
+            t_up0 = _time.perf_counter()
+            entries.append(self._upload_record(rec, budget, totals))
+            totals["upload_s"] += _time.perf_counter() - t_up0
+            record_delta("chunks_prepared")
+        if not chunks:
+            _save_chunk(0, None)
+
+    def _load_batches_layout(self, meta: dict, arrays: List[np.ndarray],
+                             ctx) -> Optional[dict]:
+        """Rehydrate a whole-set "batches" entry (its dictionary snapshot
+        already adopted) and upload it."""
+        records: List[dict] = []
+        total = 0
+        try:
+            for m in meta["batches"]:
+                rec = _record_from_meta(m, arrays, self._narrow_choice)
+                if rec is None:
+                    return None
+                total += rec.pop("nbytes")
+                records.append(rec)
+        except Exception:
+            return None
+        budget = ctx.config.tpu_hbm_budget()
+        # a budget overrun raises (not a miss): the fresh prepare would too
+        check_budget(total, budget, "stage batches")
+        totals = {"bytes": total}
+        return {"kind": "batches",
+                "entries": [self._upload_record(rec, budget, totals) for rec in records]}
 
     def _sorted_kernel_eligible(self, ctx) -> bool:
         """The "pallas_sorted" route's static gate (the JAX package's,
@@ -1001,6 +1392,10 @@ class FusedAggregateStage:
         from ballista_tpu_torch.ops.layout import SortedSegmentLayout
         from ballista_tpu_torch.ops.runtime import record_ingest
 
+        # a persisted layout skips the scan, rank, sort and materialize
+        loaded = self._load_layout(partition, ctx, want=("sorted",))
+        if loaded is not None:
+            return loaded
         t_wall0 = _time.perf_counter()
         batches = [b for b in self._scan_batches(partition, ctx) if b.num_rows]
         if not batches:
@@ -1090,6 +1485,12 @@ class FusedAggregateStage:
             total += tiles.nbytes
         # the take-index served every materialize
         layout.row_take = None
+        # checked before the save, so an undeployable layout is never
+        # written; the save comes before the upload, which consumes the
+        # host tiles
+        check_budget(total, ctx.config.tpu_hbm_budget(), "stage tiles")
+        self._save_sorted_layout(partition, ctx, layout, staged, staged_derived,
+                                 key_values)
         t_up0 = _time.perf_counter()
         out = self._finish_sorted(ctx, layout, staged, key_values, total, staged_derived)
         t_end = _time.perf_counter()
@@ -1098,16 +1499,15 @@ class FusedAggregateStage:
 
     def _finish_sorted(self, ctx, layout, staged: Dict, key_values, total: int,
                        staged_derived: Dict) -> dict:
-        """Budget check, then the h2d upload of the staged tiles and derived
-        tiles (recording each narrow choice) and the "sorted" entry."""
-        check_budget(total, ctx.config.tpu_hbm_budget(), "stage tiles")
+        """Shared tail of the fresh and the disk-loaded sorted prepares:
+        budget check, headroom, then the h2d upload of the staged tiles and
+        derived tiles (recording each narrow choice) and the "sorted"
+        entry."""
+        budget = ctx.config.tpu_hbm_budget()
+        check_budget(total, budget, "stage tiles")
+        make_headroom(self, total, budget)
         dev = self.device
-        cols: Dict = {}
-        for idx in list(staged):
-            tiles, lut, choice = staged.pop(idx)
-            self._narrow_choice[idx] = choice
-            col = upload(tiles, dev)
-            cols[idx] = col if lut is None else (col, upload(lut, dev))
+        cols = _upload_staged(staged, self._narrow_choice, dev)
         derived: Dict = {}
         for name in list(staged_derived):
             tiles, key, choice = staged_derived.pop(name)
@@ -1124,6 +1524,95 @@ class FusedAggregateStage:
             "derived": derived,
         }
 
+    # -- persisted layout cache (ops/layout_cache.py) -------------------
+    def _save_sorted_layout(self, partition: int, ctx, layout, staged: Dict,
+                            staged_derived: Dict, key_values) -> None:
+        """Best-effort persist of one prepared sorted partition: layout
+        scalars, owner and chunk lengths, narrow tiles with their LUTs and
+        choices, derived tiles, the string-dictionary snapshot (codes are
+        baked into the tiles) and the group key values (Arrow IPC bytes).
+        The int-range check is not run again on load: the entry exists only
+        if the identical data passed it at save time."""
+        from ballista_tpu_torch.ops import layout_cache as lc
+
+        base = self._store(ctx)
+        if not base or self.persist_key is None:
+            return
+        arrays: List[np.ndarray] = [layout.owner, layout.clen]
+        meta: Dict = {"kind": "sorted", "layout": layout.state(), "owner": 0,
+                      "clen": 1, "cols": _pack_staged(staged, arrays)}
+        derived_meta = {}
+        for name, (tiles, nkey, choice) in staged_derived.items():
+            derived_meta[name] = {"tiles": len(arrays), "key": nkey, "choice": choice}
+            arrays.append(tiles)
+        meta["derived"] = derived_meta
+        dmeta, darrays = lc.pack_dict_snapshot(self.dicts)
+        offset = len(arrays)
+        meta["dicts"] = {k: v + offset for k, v in dmeta.items()}
+        arrays.extend(darrays)
+        meta["keys"] = len(arrays)
+        arrays.append(lc.pack_arrow_arrays(key_values))
+        meta["n_arrays"] = len(arrays)
+        lc.save_entry(base, self.persist_key, partition, meta, arrays,
+                      ctx.config.tpu_layout_cache_cap())
+
+    # holds-lock: self._prepare_lock
+    def _load_layout(self, partition: int, ctx, want=("sorted", "batches")):
+        """Rehydrate a persisted partition of either kind: adopt the
+        dictionary snapshot (live dictionaries must be a prefix, so codes in
+        the persisted arrays mean the same strings), then go straight to
+        the h2d upload. None on any miss or mismatch."""
+        from ballista_tpu_torch.ops import layout_cache as lc
+
+        base = self._store(ctx)
+        if not base or self.persist_key is None:
+            return None
+        hit = lc.load_entry(base, self.persist_key, partition)
+        if hit is None:
+            return None
+        meta, arrays = hit
+        if meta.get("kind") not in want:
+            return None
+        try:
+            if not lc.adopt_dict_snapshot(self.dicts, meta["dicts"], arrays):
+                return None
+        except Exception:
+            return None
+        if meta["kind"] == "batches":
+            return self._load_batches_layout(meta, arrays, ctx)
+        return self._load_sorted_entry(meta, arrays, ctx)
+
+    def _load_sorted_entry(self, meta: dict, arrays, ctx) -> Optional[dict]:
+        from ballista_tpu_torch.ops import layout_cache as lc
+        from ballista_tpu_torch.ops.layout import SortedSegmentLayout
+
+        if set(meta.get("derived", {})) != set(self.derive_columns):
+            return None
+        try:
+            clen = arrays[meta["clen"]]
+            layout = SortedSegmentLayout.from_state(
+                meta["layout"], arrays[meta["owner"]], clen)
+            unpacked = _unpack_staged(meta["cols"], arrays, self._narrow_choice)
+            if unpacked is None:
+                return None
+            staged, col_bytes = unpacked
+            total = clen.nbytes + col_bytes
+            staged_derived: Dict[str, tuple] = {}
+            for name, spec in meta["derived"].items():
+                nkey = spec["key"]
+                if nkey is not None:
+                    cur = self._narrow_choice.get(nkey)
+                    if cur is not None and cur != spec["choice"]:
+                        return None
+                staged_derived[name] = (arrays[spec["tiles"]], nkey, spec["choice"])
+                total += arrays[spec["tiles"]].nbytes
+            key_values = lc.unpack_arrow_arrays(arrays[meta["keys"]])
+        except Exception:
+            return None
+        # a budget overrun raises (not a miss), as the fresh prepare would
+        return self._finish_sorted(ctx, layout, staged, key_values, total,
+                                   staged_derived)
+
     def _prepare_pallas_sorted(self, batch, codes, key_values, n_groups, ctx) -> dict:
         """Flat sorted residency for the sorted_grouped_sum kernel: rows in
         stable group-rank order, full-width columns (not narrowed), no
@@ -1136,7 +1625,9 @@ class FusedAggregateStage:
         total = n * (4 + 1)  # codes int32 + row_valid bool
         for npcol in npcols.values():
             total += n * npcol.dtype.itemsize
-        check_budget(total, ctx.config.tpu_hbm_budget(), "sorted kernel stage columns")
+        budget = ctx.config.tpu_hbm_budget()
+        check_budget(total, budget, "sorted kernel stage columns")
+        make_headroom(self, total, budget)
         cols: Dict[int, object] = {
             idx: upload(npcol[order], dev) for idx, npcol in npcols.items()
         }
@@ -1212,6 +1703,7 @@ class FusedAggregateStage:
         from ballista_tpu_torch.ops.runtime import (
             entry_device_bytes,
             reserve_and_pin,
+            touch_residency,
         )
 
         self.bind_device(ctx)
@@ -1223,25 +1715,21 @@ class FusedAggregateStage:
                 "volatile row source (enable ballista.tpu.fuse_volatile_sources)"
             )
         prepared = self._device_cache.get(partition) if use_cache else None
-        if prepared is None:
+        if prepared is not None:
+            touch_residency(self, partition)  # LRU recency for eviction
+        else:
             with self._prepare_lock:
                 prepared = self._device_cache.get(partition) if use_cache else None
                 if prepared is None:
-                    if self.topk is not None:
-                        # the fused top-k epilogue needs ONE device step over
-                        # the whole partition (per-batch group codes are
-                        # batch-local); the sorted prepare decides per
-                        # partition whether fusion can be live
-                        prepared = self._prepare_partition_sorted(partition, ctx)
-                    else:
-                        try:
-                            prepared = {"kind": "batches",
-                                        "entries": self._prepare_partition(partition, ctx)}
-                        except TooManyGroups:
-                            prepared = self._prepare_partition_sorted(partition, ctx)
+                    # a persisted layout first: a hit skips the whole scan
+                    # and rank pass (the batches route would decode Parquet
+                    # before it learns the cardinality it declines on)
+                    prepared = self._load_layout(partition, ctx)
+                    if prepared is None:
+                        prepared = self._prepare_fresh(partition, ctx)
                     if use_cache:
-                        # pin within the budget; past it the partition
-                        # streams per query
+                        # pin within the budget (a disk-loaded entry too);
+                        # past it the partition streams per query
                         reserve_and_pin(
                             self, partition, prepared, self._device_cache,
                             entry_device_bytes(prepared),
@@ -1250,6 +1738,21 @@ class FusedAggregateStage:
         if self.mapped:
             record_routing_event("mapped_rewrite")
         return self.execute_prepared(prepared, self.device)
+
+    # holds-lock: self._prepare_lock
+    def _prepare_fresh(self, partition: int, ctx) -> dict:
+        """Prepare a partition from its source: the "batches" route, or the
+        sorted prepare past MAX_GROUPS. A stage with the fused top-k
+        epilogue needs ONE device step over the whole partition (per-batch
+        group codes are batch-local), so it takes the sorted prepare, which
+        decides per partition whether fusion can be live."""
+        if self.topk is not None:
+            return self._prepare_partition_sorted(partition, ctx)
+        try:
+            return {"kind": "batches",
+                    "entries": self._prepare_partition(partition, ctx)}
+        except TooManyGroups:
+            return self._prepare_partition_sorted(partition, ctx)
 
     def execute_prepared(self, prepared: dict, device) -> pa.Table:
         """Run the device step over one prepared partition entry (what

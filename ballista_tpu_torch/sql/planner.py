@@ -19,7 +19,8 @@ client side rust/client/src/context.rs:131-143).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+import itertools
+from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import pyarrow as pa
 
@@ -289,9 +290,27 @@ def _expr_resolves(e: lx.Expr, schema: pa.Schema) -> bool:
 
 
 class SelectPlanner:
-    def __init__(self, ctx, outer_schema: Optional[pa.Schema] = None) -> None:
+    """Plans one SELECT statement. The synthetic aliases of subqueries
+    (EXISTS, IN, the IN value, the NOT IN null count, scalar subqueries and
+    their keys) are numbered in planning order from a counter that every
+    nested planner of the statement shares, and that each statement starts
+    afresh: two plannings of the same SQL give the same plan text, and with
+    it the same device stage key. (The JAX package names them after id() of
+    an AST node; answers, routes and join paths are the same.)"""
+
+    def __init__(self, ctx, outer_schema: Optional[pa.Schema] = None,
+                 aliases: Optional[Iterator[int]] = None) -> None:
         self.ctx = ctx
         self.outer_schema = outer_schema
+        self._aliases = itertools.count() if aliases is None else aliases
+
+    def _nested(self) -> "SelectPlanner":
+        """A planner for a subquery of this statement (same alias counter)."""
+        return SelectPlanner(self.ctx, aliases=self._aliases)
+
+    def _ordinal(self) -> int:
+        """The next synthetic-alias number of this statement."""
+        return next(self._aliases)
 
     # -- entry -------------------------------------------------------------
     def _plan_core(self, stmt: sa.SelectStmt) -> lp.LogicalPlan:
@@ -574,7 +593,7 @@ class SelectPlanner:
             scan = lp.TableScan(item.name.lower(), src)
             return [(alias, lp.SubqueryAlias(scan, alias))]
         if isinstance(item, sa.SubqueryRef):
-            sub = SelectPlanner(self.ctx).plan(item.stmt)
+            sub = self._nested().plan(item.stmt)
             return [(item.alias.lower(), lp.SubqueryAlias(sub, item.alias.lower()))]
         if isinstance(item, sa.JoinItem):
             left_rels = self._plan_from_item(item.left)
@@ -810,7 +829,7 @@ class SelectPlanner:
         Returns (inner joined+filtered plan, [(outer_col, inner_col)]
         correlation equi keys, residual correlated predicates referencing
         both scopes)."""
-        inner_planner = SelectPlanner(self.ctx)
+        inner_planner = self._nested()
         # plan FROM items
         rels: List[Tuple[str, lp.LogicalPlan]] = []
         for item in stmt.from_items:
@@ -869,7 +888,7 @@ class SelectPlanner:
         self, stmt: sa.SelectStmt, outer_schema: pa.Schema
     ) -> bool:
         """Check whether any WHERE conjunct references an outer column."""
-        inner_planner = SelectPlanner(self.ctx)
+        inner_planner = self._nested()
         rels: List[Tuple[str, lp.LogicalPlan]] = []
         for item in stmt.from_items:
             rels.extend(inner_planner._plan_from_item(item))
@@ -903,13 +922,13 @@ class SelectPlanner:
                 # count aggregate over LIMIT 1 (one row decides the truth),
                 # filter on it, project it back away
                 try:
-                    sub = SelectPlanner(self.ctx).plan(node.stmt)
+                    sub = self._nested().plan(node.stmt)
                 except SchemaError:
                     # correlation the WHERE-conjunct scan missed (e.g. via
                     # the SELECT list): fall through to the correlated path
                     sub = None
                 if sub is not None:
-                    alias = f"__exists_{id(node)}"
+                    alias = f"__exists_{self._ordinal()}"
                     ncol_name = "__exists_n"
                     probe = lp.Aggregate(
                         lp.Limit(sub, 1),
@@ -959,8 +978,8 @@ class SelectPlanner:
                 # full sub-select planning (aggregates/HAVING/DISTINCT ok);
                 # wrap in a unique alias so inner names can't collide with
                 # outer scope
-                sub = SelectPlanner(self.ctx).plan(node.stmt)
-                alias = f"__in_{id(node)}"
+                sub = self._nested().plan(node.stmt)
+                alias = f"__in_{self._ordinal()}"
                 sub = lp.SubqueryAlias(sub, alias)
                 in_key = lx.Column(sub.schema().names[0].split(".")[-1], alias)
                 on = [(node.expr, in_key)]
@@ -979,7 +998,7 @@ class SelectPlanner:
             proj0, _al = node.stmt.projections[0]
             if isinstance(proj0, str):
                 raise SqlError("IN (subquery) requires an explicit select column")
-            in_alias = f"__in_val_{id(node)}"
+            in_alias = f"__in_val_{self._ordinal()}"
             keep = [
                 lx.Column(f.name.split(".")[-1], f.name.split(".")[0] if "." in f.name else None)
                 for f in inner_plan.schema()
@@ -1031,7 +1050,7 @@ class SelectPlanner:
         out: lp.LogicalPlan = lp.Join(plan, nonnull_sub, on, lp.JoinType.ANTI)
         out = lp.Filter(out, lx.IsNotNull(probe_expr))
         # null guard: cross join a 1-row count of NULL inner values, require 0
-        nullcnt = f"__in_nullcnt_{id(sub)}"
+        nullcnt = f"__in_nullcnt_{self._ordinal()}"
         nulls_agg = lp.Aggregate(
             lp.Filter(sub, lx.IsNull(in_key)),
             [],
@@ -1066,7 +1085,8 @@ class SelectPlanner:
         collect_aggregates(proj, aggs)
         if not aggs:
             raise SqlError("scalar subquery must be an aggregate")
-        out_name = f"__sq_{id(sq)}"
+        ordinal = self._ordinal()
+        out_name = f"__sq_{ordinal}"
 
         if corr_keys:
             group_cols = [i for (_o, i) in corr_keys]
@@ -1080,7 +1100,7 @@ class SelectPlanner:
             key_aliases = []
             proj_exprs: List[lx.Expr] = []
             for k, (o, i) in enumerate(corr_keys):
-                kname = f"__sqk_{id(sq)}_{k}"
+                kname = f"__sqk_{ordinal}_{k}"
                 proj_exprs.append(lx.Alias(lx.Column(i.name, i.relation), kname))
                 key_aliases.append(kname)
             proj_exprs.append(lx.Alias(value, out_name))

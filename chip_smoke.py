@@ -56,7 +56,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (`dim_ms`: the spans factagg.dim_side, factagg.secondary_side and
    mappedscan.dim_maps) per query, and the device time inside one more
    warm run (torch.profiler, `warm_device_ms`) with the warm median's idle
-   share. Launch counters are 0 when it starts;
+   share, and the warm runs' prepares (q18 must have none: its stage key
+   is stable). Launch counters are 0 when it starts;
    neither kernel is on this path, and their counts are printed. The dim
    sides join on the card (ops/join.py): each query prints its join paths
    (runtime.join_path_stats, every non-"device" path with its reason),
@@ -85,6 +86,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Prints the device ms of the runs step and of the gather, the host ms of
    device_join_indices and device_membership_counts, and the host
    oracle's ms.
+9. layout cache (runs before phase 8, over phase 3's data, with its own
+   temporary store: ballista.tpu.layout_cache_dir <tmp>/layouts, so the
+   port's store is <tmp>/layouts_torch). q1, q6, q3, q15, q17, q18 and q20
+   run cold over an empty store (cold ms, prepare_ms, prepares, entries
+   and bytes written, the ms inside the store's spans layout_cache.save
+   and layout_cache.load, the "cpu" backend's ms, answers held against
+   it).
+   A directory holding one lineitem file is warmed with q1 (its chunks
+   prepared), then the second file is copied in. A second
+   cuda_kernels.build() must compile nothing. Then a new process
+   (chip_smoke.py --layout-child) prewarms the kernel libraries (from disk:
+   compile_hit_disk for both, kernel_built 0), runs the seven queries cold
+   over the warm store (cold ms and its store read ms; prepares must be 0;
+   answers equal to the empty-store
+   run's: non-float columns exact, floats within the tolerance of phase 3,
+   bit_equal says whether they are bit-equal too) and q1 over the grown
+   directory (chunks_reused = the first file's chunks, chunks_prepared =
+   the second's, the answer equal to the "cpu" backend's over both).
+   Last, q18-inner and q15-revenue ("sorted" stages) alternate four times
+   under an hbm_budget_bytes of the larger stage plus half the smaller:
+   the (pins, evictions, streams) of every run (runtime.residency_stats)
+   must be residency_sequence(sizes), which tests/test_torch_residency.py
+   holds both packages to on the CPU.
+   Printed as one {"layout_cache": ...} line.
 
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
@@ -96,9 +121,10 @@ the same inputs in turns (previous, current, current, previous):
 `previous_ms`, `previous_ms_single`.
 
 No Pallas kernel lies on a join path in the JAX package either: both
-kernels' launches on phases 6 to 8 are counted and printed (0 expected).
+kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 
-Prints one {"ptxas": ..., "sass_atomics": ...} line (each kernel's
+Prints the {"layout_cache": ...} line of phase 9, one {"ptxas": ...,
+"sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
 SASS opcodes of each library), one {"kernels": [...]} line, then the
 nvidia-smi line, and last
@@ -176,6 +202,29 @@ TPCH_WARM = 3
 # every phase: an in-memory cost store, so routing starts cold each run
 BASE = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": "",
         "ballista.tpu.cost_model_dir": ""}
+# phase 9: the queries run cold over an empty and then a warm layout store
+LAYOUT_QUERIES = ["q1", "q6", "q3", "q15", "q17", "q18", "q20"]
+# phase 9: q18-inner (A) and q15-revenue (B) alternate four times under a
+# budget that holds the larger alone but not both
+RESIDENCY_PAIR = (("q18_inner", Q18_INNER), ("q15_revenue", Q15_REVENUE))
+# the JAX package's eviction cost ratio (ops/runtime.py::_EVICT_COST_RATIO)
+EVICT_COST_RATIO = 4
+
+
+def residency_sequence(size_a: int, size_b: int):
+    """(pins, evictions, streams) per run of A, B, A, B, A, B, A, B under
+    the JAX package's LRU policy with a budget that holds either stage
+    alone but not both, for stage sizes size_a and size_b. A victim over
+    EVICT_COST_RATIO times the request is never evicted: the smaller stage
+    then streams from its second run on. Otherwise the first cycle thrashes
+    (each pin evicts the other), after which the cooldown keeps A pinned
+    and B streams. tests/test_torch_residency.py holds both packages to
+    this sequence on the CPU; phase 9 holds the card to it."""
+    if size_a > EVICT_COST_RATIO * size_b:
+        return [(1, 0, 0)] + [(0, 0, 1), (0, 0, 0)] * 3 + [(0, 0, 1)]
+    if size_b > EVICT_COST_RATIO * size_a:
+        return [(1, 0, 0), (1, 1, 0)] + [(0, 0, 1), (0, 0, 0)] * 3
+    return [(1, 0, 0), (1, 1, 0), (1, 1, 0), (0, 0, 1)] + [(0, 0, 0), (0, 0, 1)] * 2
 
 
 def fail(msg: str) -> None:
@@ -209,12 +258,13 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s ({', '.join(built) or 'no sources'})")
     facts = {name: b["ptxas"] for name, b in built.items()}
+    libraries = {name: b["library"] for name, b in built.items()}
     for name, kernels in facts.items():
         for k in kernels:
             if k["spill_stores"] or k["spill_loads"]:
                 log(f"build: {name}: {k['function']} spills "
                     f"({k['spill_stores']} B stored, {k['spill_loads']} B loaded)")
-    return secs, facts
+    return secs, facts, libraries
 
 
 def _previous_kernels(src_dir: str):
@@ -283,27 +333,25 @@ def _time_pair(kernel, previous):
     return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
 
 
-def _sass_atomics():
-    """{library: {SASS opcode: count}} of the atomic and reduction
+def _sass_atomics(libraries: dict):
+    """{kernel: {SASS opcode: count}} of the atomic and reduction
     instructions in each built kernel library (cuobjdump -sass), or "not
     measured" where the toolkit has no cuobjdump."""
     import re
-
-    from ballista_tpu_torch.ops import cuda_kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
         return "not measured"
     out = {}
-    for lib in sorted(cuda_kernels.BUILD_DIR.glob("lib*.so")):
+    for name, lib in sorted(libraries.items()):
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=120)
         if sass.returncode != 0:
-            fail(f"cuobjdump -sass {lib.name}: {sass.stderr.strip()}")
+            fail(f"cuobjdump -sass {lib}: {sass.stderr.strip()}")
         ops = {}
         for m in re.finditer(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)", sass.stdout):
             ops[m.group(1)] = ops.get(m.group(1), 0) + 1
-        out[lib.stem[3:]] = ops
+        out[name] = ops
     return out
 
 
@@ -582,11 +630,17 @@ def phase_joins(data_dir: str):
                                        _stage_reads(reads, join_reads), 1)
         warm = []
         runtime.routing_stats(reset=True)
+        runtime.ingest_stats(reset=True)
         for _ in range(5):
             t0 = time.perf_counter()
             again = ctx.sql(sql).collect()
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0) * 1e3)
+        warm_prepares = runtime.ingest_stats(reset=True)["prepares"]
+        if name == "q18" and warm_prepares:
+            # its stage key is stable (ordinal subquery aliases), so the
+            # warm runs find the stage and its resident layout again
+            fail(f"q18: {warm_prepares} prepares over 5 warm runs")
         warm_routes = runtime.routing_stats(reset=True)
         warm_reads = runtime.readback_stats(reset=True)
         warm_join_reads = device_join.readback_stats(reset=True)
@@ -608,6 +662,7 @@ def phase_joins(data_dir: str):
             "join_paths": joins, "warm_join_paths": warm_joins,
             "rows": got.num_rows, "cold_ms": cold_ms,
             "warm_ms": statistics.median(warm), "warm_runs_ms": warm,
+            "warm_prepares": warm_prepares,
             "readbacks": reads["readbacks"], "readback_rows": reads["rows"],
             "readback_bytes": reads["bytes"], "join_readbacks": join_reads,
             "warm_readback_rows_per_run": warm_reads["rows"] / 5,
@@ -667,11 +722,13 @@ def phase_tpch(data_dir: str):
         if name == "q22" and routes["events"].get("join.counts:device", 0) < 1:
             fail(f"q22: no device membership join recorded: {routes['events']}")
         warm = []
+        runtime.ingest_stats(reset=True)
         for _ in range(TPCH_WARM):
             t0 = time.perf_counter()
             again = ctx.sql(sql).collect()
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0) * 1e3)
+        warm_prepares = runtime.ingest_stats(reset=True)["prepares"]
         warm_routes = runtime.routing_stats(reset=True)
         warm_joins = runtime.join_path_stats(reset=True)
         warm_reads = runtime.readback_stats(reset=True)
@@ -691,7 +748,8 @@ def phase_tpch(data_dir: str):
             "readback_bytes": reads["bytes"], "join_readbacks": join_reads,
             "warm_readbacks_per_run": warm_reads["readbacks"] / TPCH_WARM,
             "cold_ms": cold_ms, "warm_ms": statistics.median(warm),
-            "warm_runs_ms": warm, "cpu_backend_ms": host_ms,
+            "warm_runs_ms": warm, "warm_prepares": warm_prepares,
+            "cpu_backend_ms": host_ms,
         }
         log(f"{name}: {times[name]}")
     launches = cuda_kernels.launch_counts()
@@ -1254,6 +1312,305 @@ def phase_grouped_aggregate(seed: int, launches: dict, previous=None):
     }
 
 
+# -- phase 9: the persisted layout cache ----------------------------------------
+
+def _write_answer(path: pathlib.Path, table) -> None:
+    import pyarrow as pa
+
+    with pa.OSFile(str(path), "wb") as sink, pa.ipc.new_file(sink, table.schema) as w:
+        w.write_table(table)
+
+
+def _read_answer(path: pathlib.Path):
+    import pyarrow as pa
+
+    with pa.memory_map(str(path)) as src:
+        return pa.ipc.open_file(src).read_all()
+
+
+def _same_answer(name: str, got, want) -> bool:
+    """Hold an answer over a warm store to the empty-store run's: columns,
+    rows, keys, counts and integer sums exact; floats within the path's
+    tolerance. Returns whether every float column is bit-equal too."""
+    import pyarrow as pa
+
+    if got.column_names != want.column_names or got.num_rows != want.num_rows:
+        fail(f"{name}: {got.num_rows} rows {got.column_names} over the warm store, "
+             f"{want.num_rows} rows {want.column_names} over the empty store")
+    bit_equal = True
+    for c, f in zip(want.column_names, want.schema):
+        a = got.column(c).to_numpy(zero_copy_only=False)
+        b = want.column(c).to_numpy(zero_copy_only=False)
+        if pa.types.is_floating(f.type):
+            if not np.allclose(a, b, rtol=RTOL_PATH, atol=ATOL_PATH):
+                fail(f"{name}: column {c} over the warm store differs "
+                     f"(max abs err {np.max(np.abs(a - b))})")
+            bit_equal = bit_equal and a.tobytes() == b.tobytes()
+        elif list(a) != list(b):
+            fail(f"{name}: column {c} over the warm store differs")
+    return bit_equal
+
+
+def _chunks_of(lineitem_file: pathlib.Path, batch_size: int) -> int:
+    import pyarrow.parquet as pq
+
+    return -(-pq.ParquetFile(str(lineitem_file)).metadata.num_rows // batch_size)
+
+
+def residency_runs(make_ctx):
+    """Phase 9's residency part: RESIDENCY_PAIR's "sorted" stage queries
+    (A, B) run A, B, A, B, A, B, A, B under a budget of the larger stage
+    plus half the smaller (so it holds one, not both), each stage sized by
+    one unconstrained run first. `make_ctx(settings)` gives a context with
+    the TPC-H tables registered. Returns per run (query, pins, evictions,
+    streams) from runtime.residency_stats, the stage sizes in pair order,
+    and the budget."""
+    from ballista_tpu_torch.ops import kernels, runtime
+
+    sizes = []
+    for _name, sql in RESIDENCY_PAIR:
+        kernels.clear_stage_cache()
+        runtime.reset_residency()
+        make_ctx(BASE).sql(sql).collect()
+        sizes.append(runtime.resident_bytes())
+    budget = max(sizes) + min(sizes) // 2
+    kernels.clear_stage_cache()
+    runtime.reset_residency()
+    ctx = make_ctx({**BASE, "ballista.tpu.hbm_budget_bytes": str(budget)})
+    runs = []
+    for _cycle in range(4):
+        for name, sql in RESIDENCY_PAIR:
+            runtime.routing_stats(reset=True)
+            ctx.sql(sql).collect()
+            c = runtime.residency_stats(reset=True)
+            routes = runtime.routing_stats(reset=True)["routes"]
+            if set(routes) != {"sorted"}:
+                raise AssertionError(f"residency {name}: expected the sorted route, "
+                                     f"recorded {routes}")
+            runs.append((name, c["pins"], c["evictions"], c["streams"]))
+    kernels.clear_stage_cache()
+    runtime.reset_residency()
+    return runs, sizes, budget
+
+
+def _store_span_ms() -> dict:
+    """Milliseconds in the store's spans since the last tracing reset:
+    {"layout_cache.load": reads (and misses), "layout_cache.save": writes}."""
+    from ballista_tpu_torch.utils import tracing
+
+    out = {"layout_cache.load": 0.0, "layout_cache.save": 0.0}
+    for path, dt, _ in tracing.spans():
+        name = path.split("/")[-1]
+        if name in out:
+            out[name] += dt * 1e3
+    return out
+
+
+def phase_layout_cache(data_dir: str):
+    """Phase 9 (see the module docstring), over phase 3's data."""
+    import os
+
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import ExecutionContext
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.ops import layout_cache as lc
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_layouts_"))
+    try:
+        base = work / "layouts"
+        settings = {**BASE, "ballista.tpu.layout_cache_dir": str(base)}
+        store = lc.store_dir(BallistaConfig(settings))
+        host_ctx = ExecutionContext(BallistaConfig({**BASE, "ballista.executor.backend": "cpu"}))
+        register_all(host_ctx, data_dir)
+        answers = work / "answers"
+        answers.mkdir()
+        result = {"store": "<tmp>/layouts_torch", "queries": {}}
+        # 1. cold over an empty store
+        for name in LAYOUT_QUERIES:
+            sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+            kernels.clear_stage_cache()
+            ctx = ExecutionContext(BallistaConfig(settings))
+            register_all(ctx, data_dir)
+            _reset_counters()
+            entries0, bytes0 = lc.entry_count(store), lc.store_bytes(store)
+            t0 = time.perf_counter()
+            got = ctx.sql(sql).collect()
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            ingest = runtime.ingest_stats(reset=True)
+            store_ms = _store_span_ms()
+            t0 = time.perf_counter()
+            expect = host_ctx.sql(sql).collect()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            _compare(name, got, expect)
+            _write_answer(answers / f"{name}.arrow", got)
+            result["queries"][name] = {
+                "empty_store_cold_ms": cold_ms, "cpu_backend_ms": cpu_ms,
+                "empty_store_prepares": ingest["prepares"],
+                "empty_store_prepare_ms": {k: ingest[k] * 1e3 for k in
+                                           ("scan_s", "encode_s", "upload_s", "wall_s")},
+                "entries_written": lc.entry_count(store) - entries0,
+                "bytes_written": lc.store_bytes(store) - bytes0,
+                "store_write_ms": store_ms["layout_cache.save"],
+                "store_probe_ms": store_ms["layout_cache.load"],
+            }
+            if result["queries"][name]["entries_written"] < 1:
+                fail(f"{name}: the cold run persisted nothing")
+            log(f"layout cache {name} (empty store): {result['queries'][name]}")
+        kernels.clear_stage_cache()
+        # 2. the append directory: one lineitem file, warmed, then the second
+        files = sorted((pathlib.Path(data_dir) / "lineitem").glob("*.parquet"))
+        if len(files) < 2:
+            fail(f"append: expected two lineitem files, found {len(files)}")
+        append_dir = work / "append" / "lineitem"
+        append_dir.mkdir(parents=True)
+        shutil.copy(files[0], append_dir / files[0].name)
+        q1 = (ROOT / "benchmarks/tpch/queries/q1.sql").read_text()
+        ctx = ExecutionContext(BallistaConfig(settings))
+        ctx.register_parquet("lineitem", str(append_dir))
+        runtime.delta_stats(reset=True)
+        ctx.sql(q1).collect()
+        warmed = runtime.delta_stats(reset=True)
+        bs = ctx.config.batch_size()
+        want_first, want_second = _chunks_of(files[0], bs), _chunks_of(files[1], bs)
+        if warmed != {"chunks_prepared": want_first}:
+            fail(f"append: warming one file recorded {warmed}, not {want_first} chunks")
+        shutil.copy(files[1], append_dir / files[1].name)
+        host_append = ExecutionContext(BallistaConfig({**BASE, "ballista.executor.backend": "cpu"}))
+        host_append.register_parquet("lineitem", str(append_dir))
+        append_expect = host_append.sql(q1).collect()
+        kernels.clear_stage_cache()
+        # 3. the kernel cache: a second build runs no nvcc
+        runtime.serving_stats(reset=True)
+        rebuilt = cuda_kernels.build()
+        second_build = runtime.serving_stats(reset=True)
+        if any(b["seconds"] is not None for b in rebuilt.values()) or \
+                second_build != {"compile_hit_disk": len(rebuilt)}:
+            fail(f"kernel cache: a second build compiled: {second_build}")
+        # 4. a new process: the same queries cold over the warm store, the
+        # append, and the kernel libraries from disk
+        torch.cuda.empty_cache()
+        spec = {"data_dir": data_dir, "append_dir": str(append_dir.parent),
+                "settings": settings, "queries": LAYOUT_QUERIES, "out": str(work)}
+        (work / "spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                                "--layout-child", str(work / "spec.json")],
+                               capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            fail(f"layout cache child process failed (rc {child.returncode}):\n"
+                 f"{child.stderr[-4000:]}")
+        warm = json.loads((work / "child.json").read_text())
+        for name in LAYOUT_QUERIES:
+            row = result["queries"][name]
+            w = warm["queries"][name]
+            if w["prepares"] != 0:
+                fail(f"{name}: {w['prepares']} prepares over the warm store")
+            row["bit_equal"] = _same_answer(
+                name, _read_answer(work / f"warm_{name}.arrow"),
+                _read_answer(answers / f"{name}.arrow"))
+            row.update({"warm_store_cold_ms": w["cold_ms"], "warm_store_prepares": 0,
+                        "warm_store_read_ms": w["store_read_ms"],
+                        "warm_store_routes": w["routes"]})
+            log(f"layout cache {name} (warm store, new process): {row}")
+        app = warm["append"]
+        if app["delta"].get("chunks_reused") != want_first or \
+                app["delta"].get("chunks_prepared") != want_second:
+            fail(f"append: {app['delta']}, expected {want_first} chunks reused and "
+                 f"{want_second} prepared")
+        _compare("append q1", _read_answer(work / "warm_append_q1.arrow"), append_expect)
+        kc = warm["kernels"]
+        if kc.get("compile_hit_disk") != len(rebuilt) or kc.get("kernel_built", 0) != 0:
+            fail(f"kernel cache: the new process recorded {kc}")
+        result.update({
+            "store_bytes": lc.store_bytes(store), "store_entries": lc.entry_count(store),
+            "append": {"first_file_chunks": want_first, "second_file_chunks": want_second,
+                       "warming": warmed, "child": app},
+            "kernel_cache": {"second_build": second_build, "child": kc,
+                             "child_prewarm_ms": warm["prewarm_ms"]},
+            "child_process_s": child_s,
+        })
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # 5. residency: two sorted stages alternating under a budget for one
+    def make_ctx(settings):
+        ctx = ExecutionContext(BallistaConfig(settings))
+        register_all(ctx, data_dir)
+        return ctx
+
+    runs, sizes, budget = residency_runs(make_ctx)
+    counts = [tuple(r[1:]) for r in runs]
+    expected = residency_sequence(*sizes)
+    if counts != expected:
+        fail(f"residency: (pins, evictions, streams) per run {counts}, "
+             f"expected {expected} for stage sizes {sizes}")
+    result["residency"] = {"runs": runs, "stage_bytes": sizes, "budget": budget}
+    log(f"layout cache residency: {result['residency']}")
+    return result
+
+
+def layout_child(spec_path: str) -> int:
+    """The new process of phase 9: the kernel libraries from disk, every
+    query cold over the warm store, then q1 over the grown append
+    directory. Writes child.json and the answers beside the spec."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import ExecutionContext
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.utils import tracing
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    out = pathlib.Path(spec["out"])
+    settings = spec["settings"]
+    runtime.serving_stats(reset=True)
+    t0 = time.perf_counter()
+    cuda_kernels.prewarm(BallistaConfig(settings))
+    result = {"kernels": runtime.serving_stats(reset=True),
+              "prewarm_ms": (time.perf_counter() - t0) * 1e3, "queries": {}}
+    for name in spec["queries"]:
+        sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+        kernels.clear_stage_cache()
+        ctx = ExecutionContext(BallistaConfig(settings))
+        register_all(ctx, spec["data_dir"])
+        runtime.ingest_stats(reset=True)
+        runtime.routing_stats(reset=True)
+        tracing.reset()
+        t0 = time.perf_counter()
+        got = ctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        result["queries"][name] = {
+            "cold_ms": (time.perf_counter() - t0) * 1e3,
+            "store_read_ms": _store_span_ms()["layout_cache.load"],
+            "prepares": runtime.ingest_stats(reset=True)["prepares"],
+            "routes": runtime.routing_stats(reset=True)["routes"],
+        }
+        _write_answer(out / f"warm_{name}.arrow", got)
+    kernels.clear_stage_cache()
+    q1 = (ROOT / "benchmarks/tpch/queries/q1.sql").read_text()
+    ctx = ExecutionContext(BallistaConfig(settings))
+    ctx.register_parquet("lineitem", str(pathlib.Path(spec["append_dir"]) / "lineitem"))
+    runtime.delta_stats(reset=True)
+    runtime.ingest_stats(reset=True)
+    t0 = time.perf_counter()
+    got = ctx.sql(q1).collect()
+    torch.cuda.synchronize()
+    result["append"] = {"cold_ms": (time.perf_counter() - t0) * 1e3,
+                        "delta": runtime.delta_stats(reset=True),
+                        "prepares": runtime.ingest_stats(reset=True)["prepares"]}
+    _write_answer(out / "warm_append_q1.arrow", got)
+    result["kernels_after"] = runtime.serving_stats(reset=True)
+    (out / "child.json").write_text(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -1261,6 +1618,8 @@ def main() -> int:
     ap.add_argument("--compare-sources", default=None, metavar="DIR",
                     help="also build the kernel sources in DIR (PR 2's C "
                          "interface) and time them beside the current ones")
+    ap.add_argument("--layout-child", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)  # phase 9's new process
     args = ap.parse_args()
 
     smi_line = phase_device()
@@ -1269,9 +1628,13 @@ def main() -> int:
     import torch
 
     import ballista_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from ballista_tpu_torch.ops import cuda_kernels
 
-    build_s, ptxas = phase_build()
-    sass = _sass_atomics()
+    if args.layout_child:
+        return layout_child(args.layout_child)
+
+    build_s, ptxas, libraries = phase_build()
+    sass = _sass_atomics(libraries)
     previous = {}
     if args.compare_sources:
         previous, prev_facts = _previous_kernels(args.compare_sources)
@@ -1285,6 +1648,9 @@ def main() -> int:
                                                previous.get("grouped_aggregate")))
         join_times, join_launches = phase_joins(data_dir)
         tpch_times, tpch_launches = phase_tpch(data_dir)
+        cuda_kernels.reset_launch_counts()
+        layout_times = phase_layout_cache(data_dir)
+        layout_launches = cuda_kernels.launch_counts()
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -1292,10 +1658,12 @@ def main() -> int:
         k["launches_by_path"] = {"aggregates": k["launches"],
                                  "joins": join_launches[k["name"]],
                                  "tpch": tpch_launches[k["name"]],
+                                 "layout_cache": layout_launches[k["name"]],
                                  "join_shapes": shape_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
+    print(json.dumps({"layout_cache": layout_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

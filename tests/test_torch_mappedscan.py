@@ -310,14 +310,16 @@ def test_composite_semi_keys_with_nulls(tmp_path):
 def test_ladder_step_aside_is_not_a_host_route(tmp_path):
     """The fact stage steps aside (the aggregate reads a dim column) and the
     mapped rewrite runs the aggregate on the device: the run records the
-    "batches" route, the "mapped_rewrite" event and the step-aside reason,
-    and no host route and no decline reason."""
+    "batches" route, the "mapped_rewrite" event, the step-aside reason and
+    the stage's routing decision ("stage:device", as the JAX package records
+    it), and no host route and no decline reason."""
     fp, dp, _rp, _ = _star(tmp_path)
     _, _, _, pst, routing = _run_both({"fact": fp, "dim": dp}, Q_DIM_VALUED)
     assert pst == MAPPED_BATCHES
     assert routing["routes"] == {"batches": 1}
     assert routing["reasons"] == {}
-    assert routing["events"] == {"factagg.step_aside": 1, "mapped_rewrite": 1}
+    assert routing["events"] == {"factagg.step_aside": 1, "mapped_rewrite": 1,
+                                 "stage:device": 1}
     assert routing["step_asides"] == {
         "factagg admission: fact-side group key is not the join key": 1
     }
