@@ -84,6 +84,12 @@ def _record_event(event: str, n: int = 1) -> None:
     record_routing_event(event, n)
 
 
+def enabled() -> bool:
+    """Cheap hot-path gate (a bool read; staleness costs at most one missed
+    or extra observation around configure)."""
+    return _enabled
+
+
 def configure(config) -> None:
     """Bind directory and enablement from a config. The last configuration
     wins; a directory change drops the in-memory store (entries reload
@@ -142,6 +148,17 @@ def _bucket(units: float) -> int:
 
 def _key(op: str, engine: str, bucket: int) -> str:
     return f"{op}|{engine}|b{bucket}"
+
+
+def task_run_op(shape: str) -> str:
+    """Cost-store op for scheduler-side task durations of one stage shape.
+    `shape` must already be job-independent (the caller scrubs the job id
+    from the plan display) so repeated queries of the same shape share one
+    rate across jobs: the straggler monitor predicts a fresh job's task
+    cost from that history."""
+    import hashlib
+
+    return "task.run|" + hashlib.sha1(shape.encode()).hexdigest()[:12]
 
 
 # holds-lock: _lock
@@ -341,6 +358,23 @@ def rate(op: str, engine: str = "device") -> Optional[Tuple[float, int]]:
     if n == 0 or units <= 0:
         return None
     return s / units, n
+
+
+def bucket_rate(op: str, units: float, engine: str = "device") -> Optional[float]:
+    """Seconds per unit of the EXACT power-of-two bucket covering `units`,
+    or None when the bucket is cold (< MIN_OBSERVATIONS) or the model is
+    off. Unlike predict(), never falls back to the op-global rate: the h2d
+    chunk picker (ops/runtime.py) compares candidate buckets against each
+    other, and the global fallback would make every candidate tie."""
+    if not _enabled:
+        return None
+    k = _key(op, engine, _bucket(units))
+    with _lock:
+        _load_locked()
+        e = _store.get(k)
+        if e is None or e["n"] < MIN_OBSERVATIONS or e["units"] <= 0:
+            return None
+        return e["s"] / e["units"]
 
 
 def predict(op: str, units: float, engine: str = "device") -> Optional[float]:

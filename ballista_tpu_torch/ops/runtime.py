@@ -449,20 +449,96 @@ def pad_to(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
     return np.concatenate([arr, pad])
 
 
-def upload(arr: np.ndarray, device):
-    """Host numpy array -> tensor on `device`. For a CUDA device the bytes
-    go through pinned host memory with a non-blocking copy on the current
-    stream (the caching host allocator keeps the pinned buffer alive until
-    the copy has run)."""
+def _put(arr: np.ndarray, device):
+    """One host->device copy of a contiguous numpy array. For a CUDA device
+    the bytes go through pinned host memory with a non-blocking copy on the
+    current stream (the caching host allocator keeps the pinned buffer
+    alive until the copy has run); on the CPU the tensor shares the array's
+    memory."""
     import torch
 
-    arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:  # e.g. a view of another framework's buffer
         arr = arr.copy()
     t = torch.from_numpy(arr)
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+_H2D_CHUNK_BYTES = 64 << 20  # static per-chunk default (cold store)
+_H2D_MIN_CHUNKED = 256 << 20  # arrays below this go as one piece
+# tuned-chunk candidates: the power-of-two buckets (16 MB .. 256 MB) the
+# picker compares by their observed per-chunk h2d rates
+_H2D_CHUNK_CANDIDATES = tuple(1 << p for p in range(24, 29))
+_h2d_chunk_pick = 0  # last chunk size chosen; guarded-by: _routing_lock
+
+
+def _h2d_chunk_bytes() -> int:
+    """Per-chunk h2d transfer size: among the power-of-two candidates, the
+    bucket whose OBSERVED per-chunk h2d rate is best (exact bucket only;
+    buckets without enough observations do not compete), else the static
+    64 MB default. Chunking never changes the concatenated bytes. The pick
+    is surfaced as `h2d_chunk_bytes` in routing_stats."""
+    global _h2d_chunk_pick
+    from ballista_tpu_torch.ops import costmodel
+
+    best, best_rate = _H2D_CHUNK_BYTES, None
+    for cand in _H2D_CHUNK_CANDIDATES:
+        r = costmodel.bucket_rate("h2d", cand)
+        if r is None:
+            continue
+        if best_rate is None or r < best_rate:
+            best, best_rate = cand, r
+    with _routing_lock:
+        _h2d_chunk_pick = best
+    return best
+
+
+def upload(arr: np.ndarray, device):
+    """Host numpy array -> tensor on `device`. Arrays past _H2D_MIN_CHUNKED,
+    while the cost model is on, split along axis 0 into _h2d_chunk_bytes()
+    chunks, double-buffered: chunk j is queued, then chunk j-1's event is
+    waited on and its h2d cost observed; the chunks concatenate on the
+    device, bit-identical to one put, with a transient 2x peak for this one
+    array. Every other array (and every array while the cost model is off:
+    its observations would be discarded) is one put."""
+    import torch
+
+    from ballista_tpu_torch.ops import costmodel
+
+    arr = np.ascontiguousarray(arr)
+    nbytes = arr.nbytes
+    rows = arr.shape[0] if arr.ndim else 0
+    if not costmodel.enabled() or nbytes < _H2D_MIN_CHUNKED or rows < 2:
+        return _put(arr, device)
+    chunk_rows = max(1, _h2d_chunk_bytes() // max(1, nbytes // rows))
+    if chunk_rows >= rows:
+        return _put(arr, device)
+    cuda = device.type == "cuda"
+    chunks = []
+    prev = None  # (tensor, event, t0) of the chunk in flight
+    for lo in range(0, rows, chunk_rows):
+        t0 = time.perf_counter()
+        c = _put(arr[lo:lo + chunk_rows], device)
+        ev = None
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(device))
+        if prev is not None:
+            _observe_h2d(*prev)
+        prev = (c, ev, t0)
+        chunks.append(c)
+    _observe_h2d(*prev)
+    record_routing_event("h2d_chunked")
+    return torch.cat(chunks, dim=0)
+
+
+def _observe_h2d(chunk, event, t0: float) -> None:
+    from ballista_tpu_torch.ops import costmodel
+
+    if event is not None:
+        event.synchronize()
+    costmodel.observe("h2d", chunk.nbytes, time.perf_counter() - t0)
 
 
 # -- pipelined ingestion ----------------------------------------------------
@@ -665,8 +741,22 @@ def record_readback(rows: int, nbytes: int) -> None:
 def readback(x, rows: Optional[int] = None) -> np.ndarray:
     """Canonical device->host result materialization: tensor -> numpy plus
     the readback accounting in one step. `rows` defaults to the
-    trailing-axis length (the [R, G] result convention)."""
+    trailing-axis length (the [R, G] result convention). With the cost
+    model on, the transfer's wall time lands in the cost store as a
+    per-byte "readback" observation; the producing work is synced first so
+    the timer measures the copy, not queued kernels."""
+    from ballista_tpu_torch.ops import costmodel
+
+    t0 = None
+    if costmodel.enabled():
+        if x.device.type == "cuda":
+            import torch
+
+            torch.cuda.current_stream(x.device).synchronize()
+        t0 = time.perf_counter()
     arr = x.detach().cpu().numpy()
+    if t0 is not None and arr.nbytes:
+        costmodel.observe("readback", arr.nbytes, time.perf_counter() - t0)
     record_readback(
         rows if rows is not None else (arr.shape[-1] if arr.ndim else 1),
         arr.nbytes,
@@ -712,6 +802,13 @@ def record_route(route: str, reason: Optional[str] = None) -> None:
         _routes[route] = _routes.get(route, 0) + 1
         if reason:
             _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
+
+
+def record_routing_reason(reason: str) -> None:
+    """A decline counted among the reasons with no stage route (a planning
+    decision that left the device path before any stage ran)."""
+    with _routing_lock:
+        _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
 
 
 def record_routing_event(event: str, n: int = 1) -> None:
@@ -806,12 +903,15 @@ def record_routing(engine: str, op: str, predicted_s: Optional[float] = None,
 def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
     """{"routes": {route: n}, "reasons": {decline reason: n},
     "events": {event: n}, "step_asides": {step-aside reason: n},
-    "costs": {"predicted_s", "observed_s", "predictions", "mispredicts"}}"""
+    "costs": {"predicted_s", "observed_s", "predictions", "mispredicts"},
+    "h2d_chunk_bytes": the last chunk size upload() picked (a value)}"""
+    global _h2d_chunk_pick
     with _routing_lock:
         out = {"routes": dict(_routes), "reasons": dict(_decline_reasons),
                "events": dict(_routing_events),
                "step_asides": dict(_step_asides),
-               "costs": dict(_routing_costs)}
+               "costs": dict(_routing_costs),
+               "h2d_chunk_bytes": _h2d_chunk_pick}
         if reset:
             _routes.clear()
             _decline_reasons.clear()
@@ -819,6 +919,7 @@ def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
             _step_asides.clear()
             _routing_costs.update(predicted_s=0.0, observed_s=0.0,
                                   predictions=0, mispredicts=0)
+            _h2d_chunk_pick = 0
     return out
 
 
@@ -853,3 +954,68 @@ def join_path_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
             _join_paths.clear()
             _join_reasons.clear()
     return out
+
+
+# -- distributed-path event counters -----------------------------------------
+# In-process accumulators of the scheduler, executors and client (the JAX
+# package's names and meanings, ops/runtime.py:769-1028). A standalone
+# cluster runs them all in one process; separate daemons each report their
+# own share.
+class _EventCounts:
+    """event -> count, behind its own lock. `whole` counters add int(n);
+    the others add n as given (seconds, gauges)."""
+
+    def __init__(self, whole: bool = True) -> None:
+        self._lock = threading.Lock()
+        self._counts: Dict[str, float] = {}  # guarded-by: self._lock
+        self._whole = whole
+
+    def record(self, event: str, n: float = 1) -> None:
+        with self._lock:
+            self._counts[event] = self._counts.get(event, 0) + (int(n) if self._whole else n)
+
+    def gauge(self, name: str, value: float) -> None:
+        """Overwrite a gauge, keeping its `_peak` sibling."""
+        with self._lock:
+            self._counts[name] = value
+            peak = f"{name}_peak"
+            self._counts[peak] = max(self._counts.get(peak, value), value)
+
+    def stats(self, reset: bool = False) -> Dict[str, float]:
+        with self._lock:
+            out = dict(self._counts)
+            if reset:
+                self._counts.clear()
+        return out
+
+
+# recovery work after injected or real faults (task_retry,
+# result_partition_restarted, scheduler_restart, ...)
+_recovery = _EventCounts()
+record_recovery, recovery_stats = _recovery.record, _recovery.stats
+# multi-tenant serving: result-cache hits / misses / puts / invalidations,
+# plan-cache hits, admission quota deferrals
+_tenancy = _EventCounts()
+record_tenancy, tenancy_stats = _tenancy.record, _tenancy.stats
+# shared-scan batches: scheduler-side formation (batches_formed,
+# batched_stages, ...) and the executor's solo members (member_solo)
+_shared_scan = _EventCounts()
+record_shared_scan, shared_scan_stats = _shared_scan.record, _shared_scan.stats
+# disaggregated shuffle tier: storage_publish / local_publish, storage_fetch
+# / peer_fetch, storage_fallback_peer, storage_publish_torn
+_shuffle_tier = _EventCounts()
+record_shuffle_tier, shuffle_tier_stats = _shuffle_tier.record, _shuffle_tier.stats
+# the exchange registry (ops/exchange.py): published / publish_bytes,
+# reupload_skipped / h2d_bytes_saved, served_from_registry /
+# d2h_bytes_saved, skipped_budget / evicted_budget, evicted_chaos,
+# locality_preferred, miss
+_exchange = _EventCounts()
+record_exchange, exchange_stats = _exchange.record, _exchange.stats
+# speculative execution: launched / won / lost / failed / promoted /
+# orphaned / executor_lost, wasted_seconds (a float), slo_misses / slo_met
+_speculation = _EventCounts(whole=False)
+record_speculation, speculation_stats = _speculation.record, _speculation.stats
+# elastic fleet: scale_up / scale_down / drain_* counts and the fleet_size /
+# backlog_ms gauges with their _peak siblings
+_fleet = _EventCounts(whole=False)
+record_fleet, record_fleet_gauge, fleet_stats = _fleet.record, _fleet.gauge, _fleet.stats

@@ -34,8 +34,13 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
 
 
 def hash_rows(arrays: List[pa.Array], num_partitions: int) -> np.ndarray:
-    """Map each row to a partition id by hashing key columns (the numpy
-    form of the reference package's splitmix64/FNV-1a scheme)."""
+    """Map each row to a partition id by hashing key columns. Uses the C++
+    kernel when available (bit-identical scheme), numpy otherwise."""
+    from ballista_tpu_torch.native import native_hash_rows
+
+    native = native_hash_rows(arrays, num_partitions)
+    if native is not None:
+        return native.astype(np.int64)
     n = len(arrays[0])
     acc = np.zeros(n, dtype=np.uint64)
     for arr in arrays:
@@ -77,12 +82,19 @@ def hash_rows(arrays: List[pa.Array], num_partitions: int) -> np.ndarray:
 def split_by_partition(
     batch: pa.RecordBatch, part_ids: np.ndarray, n_out: int
 ) -> List[pa.RecordBatch]:
-    """One-pass split: stable sort of row indices by partition, then a
-    single take + per-partition zero-copy slices — O(n log n + P) instead
-    of P full-batch filters."""
-    indices = np.argsort(part_ids, kind="stable")
-    sorted_ids = np.asarray(part_ids)[indices]
-    offsets = np.searchsorted(sorted_ids, np.arange(n_out + 1))
+    """One-pass split: counting-sort row indices by partition (C++ kernel
+    when available), then a single take + per-partition zero-copy slices —
+    O(n + P) instead of P full-batch filters."""
+    from ballista_tpu_torch.native import native_partition_indices
+
+    res = native_partition_indices(np.asarray(part_ids, dtype=np.int32), n_out)
+    if res is None:
+        order = np.argsort(part_ids, kind="stable")
+        sorted_ids = np.asarray(part_ids)[order]
+        offsets = np.searchsorted(sorted_ids, np.arange(n_out + 1))
+        indices = order
+    else:
+        indices, offsets = res
     taken = batch.take(pa.array(indices))
     return [
         taken.slice(int(offsets[m]), int(offsets[m + 1] - offsets[m]))

@@ -110,6 +110,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    must be residency_sequence(sizes), which tests/test_torch_residency.py
    holds both packages to on the CPU.
    Printed as one {"layout_cache": ...} line.
+10. distributed (runs after phase 9, over phase 3's data): the package's
+   StandaloneCluster (a scheduler and two executors in this process,
+   sharing the card) and a BallistaContext on it, with
+   ballista.tpu.cost_model_dir "", a temporary layout_cache_dir and the
+   scheduler's result cache off (it would answer a repeated query without
+   running a stage); exchange, shared scan and device joins keep their
+   defaults (on). All 22 TPC-H queries run once each, the stage cache
+   emptied before each, every answer held against the "cpu" backend's
+   answer of phases 3, 6 and 7 under phase 3's tolerance; then three warm
+   runs each of q1, q3 and q18. A query fails the phase if it records a
+   stage decline reason or a non-"device" join path (or its reason) that
+   the local engine's run of the same query in phases 3, 6 and 7 did not.
+   At least one query must serve a piece from the exchange registry
+   (exchange_stats: published > 0 and reupload_skipped or
+   served_from_registry > 0). Then q15's revenue view and q18's inner
+   aggregate run through the cluster under ballista.tpu.sorted_kernel=
+   pallas: every stage run takes "pallas_sorted", sorted_grouped_sum
+   launches at least once per scan partition, answers held against phase
+   3's. Prints per query the cluster's cold ms (and warm median) beside the
+   local engine's, routes and decline reasons, join paths with reasons,
+   readback_stats, exchange_stats, shuffle_tier_stats and
+   shared_scan_stats, and the phase's seconds, as one {"distributed": ...}
+   line. The cluster shuts down in a finally; an error still fails the run.
 
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
@@ -123,7 +146,8 @@ the same inputs in turns (previous, current, current, previous):
 No Pallas kernel lies on a join path in the JAX package either: both
 kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 
-Prints the {"layout_cache": ...} line of phase 9, one {"ptxas": ...,
+Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
+line of phase 10, one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
 SASS opcodes of each library), one {"kernels": [...]} line, then the
@@ -199,6 +223,11 @@ DEVICE_DIM_JOINS = ("q3", "q5", "q10")
 # phase 7: the TPC-H queries no other phase runs in full
 TPCH_REST = ["q2", "q11", "q13", "q15", "q16", "q17", "q20", "q21", "q22"]
 TPCH_WARM = 3
+# phase 10: the queries that take warm runs through the cluster, and the one
+# setting changed from the defaults (the scheduler's result cache would
+# answer a repeated query without running a stage)
+DIST_WARM = ["q1", "q3", "q18"]
+DIST_SETTINGS = {"ballista.cache.results": "false"}
 # every phase: an in-memory cost store, so routing starts cold each run
 BASE = {"ballista.executor.backend": "cuda", "ballista.tpu.layout_cache_dir": "",
         "ballista.tpu.cost_model_dir": ""}
@@ -502,7 +531,7 @@ def phase_path(sf: float, seed: int, data_dir: str):
     )
     if launches["sorted_grouped_sum"] < 2:
         fail(f"sorted_grouped_sum launched {launches['sorted_grouped_sum']} times")
-    return times, launches
+    return times, launches, host_answers
 
 
 def _join_stage(name: str, kind: str, routes: dict):
@@ -595,7 +624,7 @@ def phase_joins(data_dir: str):
     base = BASE
     host_ctx = ExecutionContext(BallistaConfig({**base, "ballista.executor.backend": "cpu"}))
     register_all(host_ctx, data_dir)
-    times = {}
+    times, answers = {}, {}
     # this path's launches: every counter starts at 0 here
     cuda_kernels.reset_launch_counts()
     for name, kind, want_routes in JOIN_QUERIES:
@@ -653,7 +682,7 @@ def phase_joins(data_dir: str):
         busy_ms = _device_busy_ms(lambda: ctx.sql(sql).collect())
         runtime.routing_stats(reset=True)
         runtime.readback_stats(reset=True)
-        expect = host_ctx.sql(sql).collect()
+        expect = answers[name] = host_ctx.sql(sql).collect()
         _compare(name, got, expect)
         _compare(name + " (warm)", again, expect)
         times[name] = {
@@ -682,7 +711,7 @@ def phase_joins(data_dir: str):
         log(f"{name}: {times[name]}")
     launches = cuda_kernels.launch_counts()
     kernels.clear_stage_cache()
-    return times, launches
+    return times, launches, answers
 
 
 def phase_tpch(data_dir: str):
@@ -699,7 +728,7 @@ def phase_tpch(data_dir: str):
 
     host_ctx = ExecutionContext(BallistaConfig({**BASE, "ballista.executor.backend": "cpu"}))
     register_all(host_ctx, data_dir)
-    times = {}
+    times, answers = {}, {}
     cuda_kernels.reset_launch_counts()
     for name in TPCH_REST:
         sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
@@ -734,7 +763,7 @@ def phase_tpch(data_dir: str):
         warm_reads = runtime.readback_stats(reset=True)
         _check_join_paths(name + " (warm)", warm_joins)
         t0 = time.perf_counter()
-        expect = host_ctx.sql(sql).collect()
+        expect = answers[name] = host_ctx.sql(sql).collect()
         host_ms = (time.perf_counter() - t0) * 1e3
         _compare(name, got, expect)
         _compare(name + " (warm)", again, expect)
@@ -754,7 +783,7 @@ def phase_tpch(data_dir: str):
         log(f"{name}: {times[name]}")
     launches = cuda_kernels.launch_counts()
     kernels.clear_stage_cache()
-    return times, launches
+    return times, launches, answers
 
 
 def _join_shapes(seed: int, sf: float):
@@ -1611,6 +1640,145 @@ def layout_child(spec_path: str) -> int:
     return 0
 
 
+# -- phase 10: the distributed path -----------------------------------------------
+
+def _host_declines(routes: dict, joins: dict) -> set:
+    """What of a run left the card: its stage decline reasons and every
+    non-"device" join path with its reasons."""
+    out = {f"reason: {r}" for r in routes.get("reasons", {})}
+    out |= {f"join: {p}" for p in joins.get("paths", {}) if p != "device"}
+    out |= {f"join: {r}" for r in joins.get("reasons", {})}
+    return out
+
+
+def _cluster_run(ctx, sql):
+    """One query through the cluster: (answer, ms, counters of the run)."""
+    import torch
+
+    from ballista_tpu_torch.ops import runtime
+
+    for stats in (runtime.routing_stats, runtime.join_path_stats, runtime.readback_stats,
+                  runtime.exchange_stats, runtime.shuffle_tier_stats,
+                  runtime.shared_scan_stats):
+        stats(reset=True)
+    t0 = time.perf_counter()
+    got = ctx.sql(sql).collect()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    routes = runtime.routing_stats(reset=True)
+    return got, ms, {
+        "routes": routes["routes"], "reasons": routes["reasons"],
+        "join_paths": runtime.join_path_stats(reset=True),
+        "readbacks": runtime.readback_stats(reset=True),
+        "exchange": runtime.exchange_stats(reset=True),
+        "shuffle_tier": runtime.shuffle_tier_stats(reset=True),
+        "shared_scan": runtime.shared_scan_stats(reset=True),
+    }
+
+
+def phase_distributed(data_dir: str, local: dict, local_answers: dict,
+                      kernel_answers: dict):
+    """Phase 10 (see the module docstring), over phase 3's data. `local`
+    maps each query to its local-engine record from phases 3, 6 and 7,
+    `local_answers` to the "cpu" backend's answer they computed, and
+    `kernel_answers` holds phase 3's answers of Q15_REVENUE and
+    Q18_INNER."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.runtime import StandaloneCluster
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    settings = {**BASE, "ballista.tpu.layout_cache_dir": str(pathlib.Path(work) / "layouts"),
+                **DIST_SETTINGS}
+    device = torch.device("cuda")
+    kernels.clear_stage_cache()
+    runtime.reset_residency()
+    cluster = StandaloneCluster(n_executors=2, config=BallistaConfig(settings), device=device)
+    result = {"queries": {}, "kernel": {}}
+    try:
+        def client(extra=None):
+            ctx = BallistaContext(*cluster.scheduler_addr,
+                                  settings={**settings, **(extra or {})}, device=device)
+            register_all(ctx, data_dir)
+            return ctx
+
+        ctx = client()
+        served = []
+        # the main path: every launch counter starts at 0 here
+        cuda_kernels.reset_launch_counts()
+        for i in range(1, 23):
+            name = f"q{i}"
+            sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+            kernels.clear_stage_cache()
+            got, cold_ms, run = _cluster_run(ctx, sql)
+            _compare(f"{name} (cluster)", got, local_answers[name])
+            new = _host_declines(run, run["join_paths"]) - local[name]["declines"]
+            if new:
+                fail(f"{name}: the cluster left the card where the local engine did not: "
+                     f"{sorted(new)}")
+            ex = run["exchange"]
+            if ex.get("published", 0) > 0 and (ex.get("reupload_skipped", 0)
+                                               or ex.get("served_from_registry", 0)):
+                served.append(name)
+            result["queries"][name] = {"rows": got.num_rows, "cold_ms": cold_ms,
+                                       "local_cold_ms": local[name]["cold_ms"], **run}
+            log(f"{name} (cluster): {result['queries'][name]}")
+        for name in DIST_WARM:
+            sql = (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+            warm = []
+            for _ in range(TPCH_WARM):
+                again, ms, _run = _cluster_run(ctx, sql)
+                warm.append(ms)
+            _compare(f"{name} (cluster, warm)", again, local_answers[name])
+            result["queries"][name].update(
+                warm_ms=statistics.median(warm), warm_runs_ms=warm,
+                local_warm_ms=local[name]["warm_ms"])
+        ctx.close()
+        launches = cuda_kernels.launch_counts()
+        if not served:
+            fail("no query served a piece from the exchange registry")
+        result["served_from_registry"] = served
+
+        # the kernel: every PARTIAL stage run of the two aggregates takes
+        # "pallas_sorted" and launches sorted_grouped_sum
+        ctx = client(PALLAS)
+        for name, sql in (("q15_revenue", Q15_REVENUE), ("q18_inner", Q18_INNER)):
+            kernels.clear_stage_cache()
+            cuda_kernels.reset_launch_counts()
+            got, ms, run = _cluster_run(ctx, sql)
+            n = cuda_kernels.launch_counts()["sorted_grouped_sum"]
+            if set(run["routes"]) != {"pallas_sorted"} or run["reasons"]:
+                fail(f"{name} (cluster, pallas): routes {run['routes']} {run['reasons']}")
+            parts = run["routes"]["pallas_sorted"]
+            if parts < 2 or n < parts:
+                fail(f"{name} (cluster, pallas): {parts} stage runs, {n} kernel launches")
+            _compare(f"{name} (cluster, pallas)", got, kernel_answers[sql])
+            launches["sorted_grouped_sum"] += n
+            result["kernel"][name] = {"stage_runs": parts, "launches": n, "ms": ms,
+                                      "rows": got.num_rows}
+            log(f"{name} (cluster, pallas): {result['kernel'][name]}")
+        ctx.close()
+    finally:
+        cluster.shutdown()
+        kernels.clear_stage_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 (distributed): {result['seconds']:.1f} s")
+    return result, launches
+
+
+def _local_record(times: dict) -> dict:
+    """A local-engine query record of phases 3, 6 and 7, for phase 10."""
+    return {"declines": _host_declines(times, times.get("join_paths", {})),
+            "cold_ms": times["cold_ms"], "warm_ms": times["warm_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -1641,16 +1809,27 @@ def main() -> int:
         ptxas = {**ptxas, "previous": prev_facts}
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_tpch_")
     try:
-        times, launches = phase_path(args.sf, args.seed, data_dir)
+        times, launches, path_answers = phase_path(args.sf, args.seed, data_dir)
         kernels = phase_kernels(args.seed, launches,
                                 previous.get("sorted_grouped_sum"))
         kernels.append(phase_grouped_aggregate(args.seed, launches,
                                                previous.get("grouped_aggregate")))
-        join_times, join_launches = phase_joins(data_dir)
-        tpch_times, tpch_launches = phase_tpch(data_dir)
+        join_times, join_launches, join_answers = phase_joins(data_dir)
+        tpch_times, tpch_launches, tpch_answers = phase_tpch(data_dir)
         cuda_kernels.reset_launch_counts()
         layout_times = phase_layout_cache(data_dir)
         layout_launches = cuda_kernels.launch_counts()
+        # phase 10 holds the cluster to the local engine's records of
+        # phases 3, 6 and 7, and reuses their "cpu" answers
+        local = {name: _local_record(t) for name, t in
+                 [*((n, times[n]) for n in ("q1", "q6")), *join_times.items(),
+                  *tpch_times.items()]}
+        local_answers = {**join_answers, **tpch_answers}
+        for name in ("q1", "q6"):
+            local_answers[name] = path_answers[
+                (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()]
+        dist_times, dist_launches = phase_distributed(data_dir, local, local_answers,
+                                                      path_answers)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -1659,11 +1838,13 @@ def main() -> int:
                                  "joins": join_launches[k["name"]],
                                  "tpch": tpch_launches[k["name"]],
                                  "layout_cache": layout_launches[k["name"]],
-                                 "join_shapes": shape_launches[k["name"]]}
+                                 "join_shapes": shape_launches[k["name"]],
+                                 "distributed": dist_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"layout_cache": layout_times}))
+    print(json.dumps({"distributed": dist_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

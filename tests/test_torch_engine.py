@@ -206,6 +206,10 @@ def test_port_imports_neither_jax_nor_reference():
         "import ballista_tpu_torch.ops.cuda_kernels, ballista_tpu_torch.ops.state\n"
         "import ballista_tpu_torch.ops.factagg, ballista_tpu_torch.ops.mappedscan\n"
         "import ballista_tpu_torch.physical.planner, ballista_tpu_torch.sql.planner\n"
+        "import ballista_tpu_torch.proto.ballista_pb2, ballista_tpu_torch.serde.physical\n"
+        "import ballista_tpu_torch.distributed.planner, ballista_tpu_torch.scheduler.server\n"
+        "import ballista_tpu_torch.executor.runtime, ballista_tpu_torch.client.dbapi\n"
+        "import ballista_tpu_torch.ops.exchange, ballista_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ballista_tpu' or m.startswith('ballista_tpu.')]\n"
         "print(bad)\n"
