@@ -27,9 +27,6 @@ from ballista_tpu_torch.physical.plan import ExecutionPlan
 from ballista_tpu_torch.physical.repartition import RepartitionExec
 
 
-SPMD_NOT_PORTED = "spmd_stages: mesh stages not ported, unfused stages planned"
-
-
 class DistributedPlanner:
     def __init__(self, config=None) -> None:
         self._next_stage_id = 0
@@ -45,16 +42,50 @@ class DistributedPlanner:
         """Returns stages in dependency order; the last is the job's root
         (its shuffle output is the query result, one piece per partition)."""
         if self._config is not None and self._config.tpu_spmd():
-            # the mesh stages (the JAX package's SPMD fusion) are not ported
-            # yet: the unfused stages run, and the decline is counted
-            from ballista_tpu_torch.ops.runtime import record_routing_reason
-
-            record_routing_reason(SPMD_NOT_PORTED)
+            plan = self._fuse_spmd_aggregates(plan)
         stages: List[ShuffleWriterExec] = []
         root = self._visit(plan, job_id, stages)
         final = ShuffleWriterExec(job_id, self._new_stage_id(), root, None)
         stages.append(final)
         return stages
+
+    def _fuse_spmd_aggregates(self, node: ExecutionPlan) -> ExecutionPlan:
+        """Config-gated mesh restructuring (ballista.tpu.spmd_stages):
+
+        - a HashAggregate(Final) <- Repartition(hash) <- HashAggregate(
+          Partial) subtree, which the exchange rule below would split into
+          two stages plus a materialized shuffle, becomes ONE
+          SpmdAggregateExec stage whose exchange is a psum over the mesh;
+        - a co-partitionable HashJoin (INNER/LEFT, no residual filter)
+          becomes ONE SpmdJoinExec stage whose hash exchange is an
+          all_to_all over the mesh instead of two materialized shuffles.
+
+        Both keep the untouched subtree inside for serde and the host path."""
+        from ballista_tpu_torch.logical.plan import JoinType
+        from ballista_tpu_torch.parallel.spmd_join import SpmdJoinExec
+        from ballista_tpu_torch.parallel.spmd_stage import SpmdAggregateExec
+        from ballista_tpu_torch.physical.aggregate import AggregateMode, HashAggregateExec
+        from ballista_tpu_torch.physical.join import HashJoinExec
+
+        children = [self._fuse_spmd_aggregates(c) for c in node.children()]
+        if children:
+            node = node.with_children(children)
+        if (
+            isinstance(node, HashAggregateExec)
+            and node.mode == AggregateMode.FINAL
+            and isinstance(node.input, RepartitionExec)
+            and isinstance(node.input.input, HashAggregateExec)
+            and node.input.input.mode == AggregateMode.PARTIAL
+        ):
+            return SpmdAggregateExec(node)
+        if (
+            isinstance(node, HashJoinExec)
+            and node.partitioned  # only fuse when there IS an exchange pair
+            and node.join_type in (JoinType.INNER, JoinType.LEFT)
+            and node.filter is None
+        ):
+            return SpmdJoinExec(node)
+        return node
 
     def _visit(
         self, node: ExecutionPlan, job_id: str, stages: List[ShuffleWriterExec]

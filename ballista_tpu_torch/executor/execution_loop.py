@@ -46,8 +46,6 @@ from ballista_tpu_torch.utils.locks import make_lock
 log = logging.getLogger("ballista.executor")
 
 POLL_INTERVAL_SECS = 0.25  # ref execution_loop.rs:75
-# shared_scan_stats() reason of a batched dispatch whose members ran solo
-BATCH_SOLO_REASON = "batch_solo: combined step not ported"
 
 
 class PollLoop:
@@ -60,6 +58,7 @@ class PollLoop:
         concurrent_tasks: int = 4,  # ref executor_config_spec.toml default
         on_death=None,
         device=None,
+        mesh_devices=None,
     ) -> None:
         from ballista_tpu_torch.utils.chaos import chaos_from_config
 
@@ -72,6 +71,8 @@ class PollLoop:
         # the torch.device every task's device stages run on (resolved by
         # the executor runtime)
         self.device = device
+        # the devices every task's mesh stages span (None: every CUDA device)
+        self.mesh_devices = mesh_devices
         # ISSUE 14: arm the dynamic lock-order witness when configured
         _locks.maybe_enable_from_config(self.config)
         self.concurrent_tasks = concurrent_tasks
@@ -547,6 +548,7 @@ class PollLoop:
                 # executor, so co-resident executors never cross-hit
                 executor_id=self.metadata.id,
                 device=self.device,
+                mesh_devices=self.mesh_devices,
             )
             return task, status, plan, ctx
         except Exception as e:
@@ -555,8 +557,10 @@ class PollLoop:
             status.failed.executor_id = self.metadata.id
             return task, status, None, None
 
-    def _member_execute(self, task, status, plan, ctx) -> None:
-        """Execute one member's plan, filling its status in place."""
+    def _member_execute(self, task, status, plan, ctx, shared=None) -> None:
+        """Execute one member's plan, filling its status in place. `shared`
+        carries a shared-scan batch's precomputed member tables; the splice
+        happens inside kernels.hash_aggregate."""
         from ballista_tpu_torch.errors import ShuffleFetchError
         from ballista_tpu_torch.utils.chaos import chaos_from_config
 
@@ -595,6 +599,8 @@ class PollLoop:
                         pid.partition_id, task.attempt, delay * 1000,
                     )
                     time.sleep(delay)
+            if shared is not None:
+                ctx.shared_scan = shared
             stats = plan.execute_shuffle_write(pid.partition_id, ctx)
             from ballista_tpu_torch.distributed.stages import shuffle_output_base
 
@@ -649,8 +655,11 @@ class PollLoop:
         """Run one TaskDefinition — or a shared-scan batch group (ISSUE 13:
         the primary plus task.siblings) under ONE task slot. Each member
         gets its own status; a member failing at any point (setup, chaos,
-        execution) fails alone. Every member runs solo (the combined
-        one-launch step is not ported yet)."""
+        execution) fails alone, and compatible members' fused-aggregate
+        stages are precomputed over one shared upload (ops/sharedscan.py)
+        before the members' plans execute. A shared-scan decline leaves
+        members to run solo; any other error in the precompute fails every
+        member of the batch, with no solo rerun."""
         if not slot_held:
             self._available.acquire()
         members = [task] + list(task.siblings)
@@ -676,18 +685,31 @@ class PollLoop:
         try:
             for td in members:
                 prepped.append(self._member_setup(td))
+            shared = None
+            runnable = [p for p in prepped if p[2] is not None]
             if len(members) > 1:
-                # the combined one-launch step (the JAX package's
-                # sharedscan.precompute) is not ported yet: every member
-                # runs solo, as the JAX package's members do when
-                # precompute declines, and gives its solo answer
-                from ballista_tpu_torch.ops.runtime import record_shared_scan
+                from ballista_tpu_torch.ops import sharedscan
 
-                record_shared_scan(BATCH_SOLO_REASON)
-                record_shared_scan("member_solo", len(members))
+                try:
+                    shared = sharedscan.precompute(
+                        [(plan, td.task_id.partition_id, ctx)
+                         for td, _st, plan, ctx in runnable],
+                        max_batch=len(members),
+                    )
+                except Exception as e:
+                    # not a decline (those return members to solo inside
+                    # precompute): an error on the card fails the batch
+                    log.error("shared-scan precompute failed: %s",
+                              traceback.format_exc())
+                    for _td, status, _plan, _ctx in runnable:
+                        status.failed.error = (
+                            f"shared scan: {type(e).__name__}: {e}"
+                        )
+                        status.failed.executor_id = self.metadata.id
+                    runnable = []
             for td, status, plan, ctx in prepped:
-                if plan is not None:
-                    self._member_execute(td, status, plan, ctx)
+                if any(p[0] is td for p in runnable):
+                    self._member_execute(td, status, plan, ctx, shared)
                 report(td, status)
                 reported += 1
         finally:

@@ -50,6 +50,7 @@ class BallistaExecutor:
         executor_id: Optional[str] = None,
         scheduler_endpoints: Optional[List[Tuple[str, int]]] = None,
         device=None,
+        mesh_devices=None,
     ) -> None:
         from ballista_tpu_torch.engine.context import resolve_device
 
@@ -92,6 +93,7 @@ class BallistaExecutor:
             # really become unreachable and lineage recovery is exercised
             on_death=self.flight.shutdown,
             device=self.device,
+            mesh_devices=mesh_devices,
         )
 
     def drain(self, timeout: float = 60.0) -> bool:
@@ -139,6 +141,7 @@ class StandaloneCluster:
         concurrent_tasks: int = 4,
         n_schedulers: int = 1,
         device=None,
+        mesh_devices=None,
     ) -> None:
         from ballista_tpu_torch.engine.context import resolve_device
         from ballista_tpu_torch.utils.chaos import chaos_from_config
@@ -148,6 +151,8 @@ class StandaloneCluster:
         # for the CPU); resolved before any server starts, so a missing
         # CUDA raises with nothing left running
         self.device = resolve_device(device)
+        # the devices every executor's mesh stages span (parallel/mesh.py)
+        self.mesh_devices = mesh_devices
         self.config = config or BallistaConfig()
         self.kv = kv or MemoryBackend()
         # replicated control plane (ISSUE 20): n_schedulers > 1 runs peer
@@ -217,6 +222,7 @@ class StandaloneCluster:
             executor_id=f"local-{idx}",
             scheduler_endpoints=endpoints,
             device=self.device,
+            mesh_devices=self.mesh_devices,
         )
         ex.start()
         with self._fleet_mu:

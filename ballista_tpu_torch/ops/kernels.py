@@ -43,6 +43,7 @@ from ballista_tpu_torch.ops.runtime import (
     pad_to,
     readback,
     record_route,
+    record_routing,
     upload,
 )
 
@@ -341,6 +342,17 @@ def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
     # bind the cost model from this dispatch's config before any path that
     # observes (the count-join prescreen included)
     costmodel.configure(ctx.config)
+    # shared-scan splice: the batched task's executor already ran this
+    # node's partition over one shared upload (ops/sharedscan.py), giving
+    # exactly what stage.run below would. Checked before the count-join
+    # prescreen: only scan-rooted stages are precomputed, and the count
+    # join only matches join shapes, so the two never claim one node
+    shared = getattr(ctx, "shared_scan", None)
+    if shared is not None:
+        hit = shared.take(exec_node, partition)
+        if hit is not None:
+            record_routing("batch", "stage")
+            return hit
     # COUNT over a LEFT join as device membership counting (q13): the
     # per-probe counts plane replaces the join expansion. A cheap shape
     # prescreen: other aggregates fall through to the stage ladder
@@ -423,8 +435,6 @@ def filter_batch(batch: pa.RecordBatch, predicate, device) -> Optional[pa.Record
             fill = False if npcol.dtype == np.bool_ else 0
             cols[idx] = upload(pad_to(npcol, bucket, fill), device)
     except UnsupportedOnDevice as e:
-        from ballista_tpu_torch.ops.runtime import record_routing
-
         record_routing("host", "filter")
         return host_fallback(f"filter batch lowering: {e}")
     aux = [upload(np.asarray(a), device) for a in compiler.build_aux()]

@@ -722,6 +722,26 @@ class FusedAggregateStage:
         floats = [r for r, is_int in zip(rows, self._int_rows) if not is_int]
         return ints, (torch.stack(floats) if floats else None)
 
+    def _logical_rows(self, ints, floats) -> list:
+        """_batch_step's (int32 rows, f32 rows) back in the row order of
+        _plan_outputs."""
+        it, ft = iter(ints), iter(() if floats is None else floats)
+        return [next(it) if is_int else next(ft) for is_int in self._int_rows]
+
+    def _unrolled_core(self):
+        """The "batches" step as a callable over given device tensors (the
+        JAX package's _unrolled_core): core(num_segments, cols, aux, codes,
+        row_valid) -> one int32 [R, num_segments] tensor in the row order of
+        _plan_outputs, f32 rows bit-cast, so one readback carries every row.
+        The shared-scan step (ops/sharedscan.py) runs it per member over one
+        shared upload; _decode_stacked reads it back."""
+
+        def core(num_segments, cols, aux, codes, row_valid):
+            ints, floats = self._batch_step(num_segments, cols, aux, codes, row_valid)
+            return self._pack_rows(self._logical_rows(ints, floats))
+
+        return core
+
     def _emit_rows(self, cols, aux, mask, counts, reduce_sum, reduce_extreme,
                    reduce_extreme_pair):
         """Per-aggregate emission in the row order of _plan_outputs: int32
@@ -1825,6 +1845,11 @@ class FusedAggregateStage:
         if not partial_tables:
             return self.partial_schema.empty_table()
         return pa.concat_tables(partial_tables)
+
+    def _decode_stacked(self, stacked: np.ndarray) -> List[np.ndarray]:
+        """Read back _unrolled_core's packed [R, G] int32 rows: int rows as
+        int64, f32 rows as f32, the dtypes _run_batches gives."""
+        return self._unpack_rows(stacked)
 
     def _state_outputs(self, rows: List[np.ndarray]) -> List[np.ndarray]:
         """Decoded logical rows -> one output column per partial-state

@@ -61,11 +61,15 @@ class TaskContext:
         attempt: int = 0,
         executor_id: str = "",
         device=None,
+        mesh_devices=None,
     ) -> None:
         self.config = config or BallistaConfig()
         # torch.device the "cuda" backend's device stages run on (None:
         # host-only context; a device stage then refuses to run)
         self.device = device
+        # the devices a mesh stage (parallel/) spans, repeats allowed, e.g.
+        # [cuda] * 4 for four shards on one card; None: every CUDA device
+        self.mesh_devices = list(mesh_devices) if mesh_devices else None
         # shuffle_fetcher: callable(PartitionLocation) -> Iterator[RecordBatch];
         # bound by the executor runtime for ShuffleReaderExec.
         self.shuffle_fetcher = shuffle_fetcher

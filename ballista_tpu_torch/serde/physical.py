@@ -22,6 +22,8 @@ from ballista_tpu_torch.distributed.stages import (
 from ballista_tpu_torch.errors import SerdeError
 from ballista_tpu_torch.logical import expr as lx
 from ballista_tpu_torch.logical.plan import JoinType
+from ballista_tpu_torch.parallel.spmd_join import SpmdJoinExec
+from ballista_tpu_torch.parallel.spmd_stage import SpmdAggregateExec
 from ballista_tpu_torch.physical import expr as px
 from ballista_tpu_torch.physical.aggregate import AggregateFunc, AggregateMode, HashAggregateExec
 from ballista_tpu_torch.physical.basic import (
@@ -251,6 +253,10 @@ def phys_plan_to_proto(plan: ExecutionPlan) -> pb.PhysicalPlanNode:
         n.unresolved_shuffle.schema_ipc = schema_to_ipc(plan.schema())
         n.unresolved_shuffle.partition_count = plan.partition_count
         n.unresolved_shuffle.identity = plan.identity
+    elif isinstance(plan, SpmdAggregateExec):
+        n.spmd_aggregate.subplan.CopyFrom(phys_plan_to_proto(plan.subplan))
+    elif isinstance(plan, SpmdJoinExec):
+        n.spmd_join.subplan.CopyFrom(phys_plan_to_proto(plan.subplan))
     else:
         raise SerdeError(f"cannot serialize physical plan {type(plan).__name__}")
     return n
@@ -276,10 +282,10 @@ def phys_plan_from_proto(n: pb.PhysicalPlanNode) -> ExecutionPlan:
                 )
             return scan
         return MemoryScanExec(src, projection)
-    if which in ("spmd_aggregate", "spmd_join"):
-        # the mesh stages (SpmdAggregateExec / SpmdJoinExec) are not ported
-        # yet, and this planner never emits them
-        raise SerdeError(f"physical plan node {which!r} is not supported by this package")
+    if which == "spmd_aggregate":
+        return SpmdAggregateExec(phys_plan_from_proto(n.spmd_aggregate.subplan))
+    if which == "spmd_join":
+        return SpmdJoinExec(phys_plan_from_proto(n.spmd_join.subplan))
     if which == "projection":
         input = phys_plan_from_proto(n.projection.input)
         schema = input.schema()

@@ -1,16 +1,19 @@
-"""Lightweight tracing spans and named counters.
+"""Lightweight tracing spans, named counters and an optional profiler hook.
 
     with span("physical_planning"):
         ...
     print(report())
 
-The JAX package's profiler hook is not carried over: device timelines on the
-GPU come from torch.profiler or CUDA events around the code in question.
+With the environment variable BALLISTA_TRACE_DIR set, a span marked
+device=True runs under torch.profiler (CPU activity, and CUDA activity when
+the card is there) and exports one Chrome trace into that directory when it
+ends (view it in chrome://tracing or Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Dict, Iterator, List, Tuple
@@ -27,14 +30,42 @@ def _stack() -> List[str]:
     return _local.stack
 
 
+def _device_trace(trace_dir: str, name: str):
+    """A torch.profiler context that writes <trace_dir>/<name>-<pid>-<n>.json
+    when it exits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with _mu:
+        n = _trace_seq[0] = _trace_seq[0] + 1
+    path = os.path.join(trace_dir, f"{name.replace('/', '_')}-{os.getpid()}-{n}.json")
+
+    def export(prof) -> None:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+
+    return profile(activities=activities, on_trace_ready=export)
+
+
+_trace_seq = [0]  # guarded-by: _mu
+
+
 @contextlib.contextmanager
-def span(name: str) -> Iterator[None]:
+def span(name: str, device: bool = False) -> Iterator[None]:
     stack = _stack()
     stack.append(name)
     path = "/".join(stack)
+    trace_dir = os.environ.get("BALLISTA_TRACE_DIR")
+    ctx = contextlib.nullcontext()
+    if device and trace_dir:
+        ctx = _device_trace(trace_dir, name)
     t0 = time.perf_counter()
     try:
-        yield
+        with ctx:
+            yield
     finally:
         dt = time.perf_counter() - t0
         with _mu:
@@ -59,7 +90,7 @@ def spans() -> List[Tuple[str, float, int]]:
 
 
 def incr(name: str, by: int = 1) -> None:
-    """Monotonic named counter (e.g. device.host_fallback)."""
+    """Monotonic named counter (e.g. spmd.mesh against spmd.host_declined)."""
     with _mu:
         _counters[name] = _counters.get(name, 0) + by
 

@@ -134,6 +134,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shared_scan_stats, and the phase's seconds, as one {"distributed": ...}
    line. The cluster shuts down in a finally; an error still fails the run.
 
+11. shared scan, mesh stages and the device span (runs after phase 10,
+   over phase 3's data). Shared scan: the four SHARED_QUERIES (distinct
+   "batches"-route aggregates over lineitem: three with only counts,
+   integer sums and min / max, one with an f32 sum) run one at a time
+   through the package's cluster (device residency and the layout store
+   off), then together: submitted while the cluster has no executor, so
+   their scan stages co-pend, then one executor starts. Every member must
+   be bit-equal to its solo run, with batches_formed, uploads_saved and
+   launches_saved >= 1 and at least two members spliced (routing event
+   "stage:batch"); prints the solo and batched wall ms of the set. Mesh
+   stages: under ballista.tpu.spmd_stages all 22 TPC-H queries and q18's
+   inner aggregate run through a cluster on the card's own mesh (one
+   shard), each held to the "cpu" backend's answer of phases 3, 6 and 7
+   under phase 3's tolerance; prints per query the path (mesh / host /
+   unfused, from the spmd.* tracing counters), the counters, the cold ms
+   beside phase 10's unfused cold ms; q1, q18-inner and q3 must take the
+   mesh. Then q1, q18-inner (the sorted program) and q3 (SpmdJoinExec) on
+   a four-shard mesh of the one card (the device list repeated) must take
+   the mesh and equal the one-shard answers (non-float columns exactly,
+   floats under phase 3's tolerance). The demos of parallel/spmd.py (q1's
+   step and the all_to_all exchange) run over lineitem's columns on the
+   four-shard mesh against a float64 numpy reference. Last, one span with
+   device=True under a temporary BALLISTA_TRACE_DIR around a q6 run must
+   leave one trace naming a CUDA kernel. Each device program of the slice
+   (the shared-scan combined step, the unrolled, sorted and join mesh
+   programs, the two demos) is timed warm on its last captured call
+   (device ms as in phase 4) beside its byte bound and the number of
+   times the phase ran it. Printed as one {"shared_mesh": ...} line. The
+   multi-process mesh path cannot show here (one card, world size 1);
+   tests/test_torch_multihost.py runs it over gloo on the CPU.
+
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
 routing; phase 8 seeds its store where it says so.
@@ -147,7 +178,7 @@ No Pallas kernel lies on a join path in the JAX package either: both
 kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 
 Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
-line of phase 10, one {"ptxas": ...,
+line of phase 10, the {"shared_mesh": ...} line of phase 11, one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
 SASS opcodes of each library), one {"kernels": [...]} line, then the
@@ -1773,6 +1804,436 @@ def phase_distributed(data_dir: str, local: dict, local_answers: dict,
     return result, launches
 
 
+# -- phase 11: shared scan, the mesh stages and the device span --------------
+
+# distinct "batches"-route aggregates over lineitem for one shared-scan batch:
+# the first three have only counts, integer sums and min / max (the combined
+# step), the last an f32 sum (its own step over the shared upload)
+SHARED_QUERIES = [
+    "select l_returnflag, count(*) as c, min(l_shipdate) as mn, max(l_shipdate) as mx "
+    "from lineitem group by l_returnflag",
+    "select l_linestatus, count(*) as c, sum(l_linenumber) as sl from lineitem "
+    "where l_shipdate <= date '1998-09-02' group by l_linestatus",
+    "select l_linenumber, max(l_suppkey) as ms, min(l_partkey) as mp from lineitem "
+    "group by l_linenumber",
+    "select l_returnflag, sum(l_extendedprice) as s, count(*) as c from lineitem "
+    "where l_discount > 0.05 group by l_returnflag",
+]
+# the scan-per-query regime shared scan serves: no residency, no layout store
+SHARED_SETTINGS = {"ballista.cache.results": "false", "ballista.tpu.device_cache": "false"}
+SPMD_SETTINGS = {"ballista.cache.results": "false", "ballista.tpu.spmd_stages": "true"}
+# the four-shard mesh on the one card: q1 (unrolled), q18's inner aggregate
+# (sorted) and q3 (an inner join through SpmdJoinExec)
+MESH4_SHARDS = 4
+MESH4_QUERIES = ("q1", "q18_inner", "q3")
+SPMD_COUNTERS = ("spmd.mesh", "spmd.host_fallback", "spmd.host_declined", "spmd.join_mesh",
+                 "spmd.join_host_inline", "spmd.join_host_fallback")
+# a window of _time_ms for one program stays under this many ms of calls
+PROGRAM_WINDOW_MS = 2000.0
+# device programs of this slice: name -> (module, factory, the reference)
+PROGRAMS = {
+    "combined_step": ("ballista_tpu_torch.ops.sharedscan", "_combined_step",
+                      "ballista_tpu/ops/sharedscan.py:749"),
+    "mesh_unrolled": ("ballista_tpu_torch.parallel.spmd_stage", "unrolled_program",
+                      "ballista_tpu/parallel/spmd_stage.py:781"),
+    "mesh_sorted": ("ballista_tpu_torch.parallel.spmd_stage", "sorted_program",
+                    "ballista_tpu/parallel/spmd_stage.py:838"),
+    "mesh_join": ("ballista_tpu_torch.parallel.spmd_join", "join_program",
+                  "ballista_tpu/parallel/spmd_join.py:401"),
+    "q1_style_step": ("ballista_tpu_torch.parallel.spmd", "build_q1_style_step",
+                      "ballista_tpu/parallel/spmd.py:128 (over :25)"),
+    "all_to_all_exchange": ("ballista_tpu_torch.parallel.spmd",
+                            "build_all_to_all_exchange_aggregate",
+                            "ballista_tpu/parallel/spmd.py:71"),
+}
+
+
+def _capture_programs(store: dict):
+    """Wrap each device program's factory so every program it builds records
+    its runs and its last call's arguments in `store` (for timing after the
+    phase). Returns the function that undoes the wrapping."""
+    import importlib
+
+    undo = []
+    for name, (mod_name, attr, _ref) in PROGRAMS.items():
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, attr)
+
+        def factory(*a, _orig=orig, _name=name, **k):
+            prog = _orig(*a, **k)
+
+            def run(*args):
+                rec = store.setdefault(_name, {"runs": 0})
+                rec["runs"] += 1
+                rec["call"] = (prog, args)
+                return prog(*args)
+
+            return run
+
+        setattr(mod, attr, factory)
+        undo.append((mod, attr, orig))
+
+    def restore():
+        for mod, attr, orig in undo:
+            setattr(mod, attr, orig)
+
+    return restore
+
+
+def _tensors(obj, out: dict) -> dict:
+    """Every distinct tensor in a nested argument structure, by storage."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        out[(obj.data_ptr(), obj.nbytes)] = obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _tensors(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _tensors(v, out)
+    return out
+
+
+def _program_record(name: str, rec: dict) -> dict:
+    """Warm device ms of one captured program call (queued calls between
+    CUDA events, _time_ms) and its byte bound: each distinct input tensor
+    read once and the output written once, over the HBM rate. A program
+    slower than PROGRAM_WINDOW_MS per call is timed over fewer calls (one
+    per window, three windows)."""
+    import torch
+
+    prog, args = rec["call"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = prog(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    in_bytes = sum(t.nbytes for t in _tensors(args, {}).values())
+    out_bytes = sum(t.nbytes for t in _tensors(out, {}).values())
+    bound_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    if first_ms * TIME_REPS > PROGRAM_WINDOW_MS:
+        ms = _time_ms(lambda: prog(*args), reps=1, windows=3, warmup=1)
+    else:
+        ms = _time_ms(lambda: prog(*args))
+    return {"name": name, "replaces": PROGRAMS[name][2], "runs": rec["runs"], "ms": ms,
+            "bytes": in_bytes + out_bytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms if ms else None}
+
+
+def _spmd_counts(before: dict) -> dict:
+    from ballista_tpu_torch.utils import tracing
+
+    now = tracing.counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in SPMD_COUNTERS
+            if now.get(k, 0) != before.get(k, 0)}
+
+
+def _shared_scan_part(data_dir: str) -> dict:
+    """The shared-scan batch through the port's cluster: the queries solo
+    (one at a time), then submitted together before an executor starts, so
+    their scan stages co-pend and batch; every member bit-equal to solo."""
+    import threading
+
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.runtime import BallistaExecutor, StandaloneCluster
+    from ballista_tpu_torch.ops import kernels, runtime
+
+    device = torch.device("cuda")
+    settings = {**BASE, **SHARED_SETTINGS}
+    kernels.clear_stage_cache()
+    cluster = StandaloneCluster(n_executors=1, config=BallistaConfig(settings), device=device)
+    try:
+        ctx = BallistaContext(*cluster.scheduler_addr, settings=settings, device=device)
+        register_all(ctx, data_dir)
+        t0 = time.perf_counter()
+        solo = [ctx.sql(q).collect() for q in SHARED_QUERIES]
+        torch.cuda.synchronize()
+        solo_ms = (time.perf_counter() - t0) * 1e3
+        ctx.close()
+    finally:
+        cluster.shutdown()
+
+    for stats in (runtime.shared_scan_stats, runtime.routing_stats):
+        stats(reset=True)
+    results = [None] * len(SHARED_QUERIES)
+    errors = []
+    cluster = StandaloneCluster(n_executors=0, config=BallistaConfig(settings), device=device)
+    try:
+        def submit(i):
+            try:
+                c = BallistaContext(*cluster.scheduler_addr, settings=settings, device=device)
+                register_all(c, data_dir)
+                results[i] = c.sql(SHARED_QUERIES[i]).collect()
+                c.close()
+            except Exception as e:  # reported below, failing the phase
+                errors.append(f"query {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(len(SHARED_QUERIES))]
+        for th in threads:
+            th.start()
+        time.sleep(3.0)  # every job plans while no executor can take work
+        t0 = time.perf_counter()
+        ex = BallistaExecutor("127.0.0.1", cluster.port, config=cluster.config,
+                              executor_id="late-0", device=device)
+        ex.start()
+        cluster.executors.append(ex)
+        for th in threads:
+            th.join(300)
+        torch.cuda.synchronize()
+        batched_ms = (time.perf_counter() - t0) * 1e3
+        if any(th.is_alive() for th in threads):
+            fail("shared scan: a client did not finish within 300 s")
+    finally:
+        cluster.shutdown()
+    if errors:
+        fail(f"shared scan: {errors}")
+    for i, (got, want) in enumerate(zip(results, solo)):
+        if got.to_pydict() != want.to_pydict():
+            fail(f"shared scan: query {i} batched differs from its solo run")
+    stats = runtime.shared_scan_stats(reset=True)
+    batch_events = runtime.routing_stats(reset=True)["events"].get("stage:batch", 0)
+    for key in ("batches_formed", "uploads_saved", "launches_saved"):
+        if stats.get(key, 0) < 1:
+            fail(f"shared scan: {key} < 1 ({stats})")
+    if batch_events < 2:
+        fail(f"shared scan: {batch_events} members spliced (stage:batch), want >= 2")
+    out = {"queries": len(SHARED_QUERIES), "solo_ms": solo_ms, "batched_ms": batched_ms,
+           "stats": stats, "stage_batch_events": batch_events, "bit_equal_to_solo": True}
+    log(f"phase 11 shared scan: {out}")
+    return out
+
+
+def _spmd_cluster(settings: dict, mesh_devices=None):
+    import torch
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.runtime import StandaloneCluster
+
+    return StandaloneCluster(n_executors=1, config=BallistaConfig(settings),
+                             device=torch.device("cuda"), mesh_devices=mesh_devices)
+
+
+def _spmd_run(ctx, name: str, sql: str) -> tuple:
+    from ballista_tpu_torch.ops import kernels
+    from ballista_tpu_torch.utils import tracing
+
+    kernels.clear_stage_cache()
+    before = tracing.counters()
+    got, ms, run = _cluster_run(ctx, sql)
+    counts = _spmd_counts(before)
+    path = ("mesh" if counts.get("spmd.mesh") or counts.get("spmd.join_mesh")
+            else "host" if any(k.startswith("spmd.") for k in counts) else "unfused")
+    return got, {"rows": got.num_rows, "cold_ms": ms, "last_path": path, "spmd": counts,
+                 "reasons": run["reasons"], "join_paths": run["join_paths"]["paths"]}
+
+
+def _spmd_part(data_dir: str, local_answers: dict, dist: dict) -> tuple:
+    """All 22 TPC-H queries (and q18's inner aggregate) through the port's
+    cluster under ballista.tpu.spmd_stages on the card's own mesh (one
+    shard), each held to the "cpu" backend's answer."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+
+    settings = {**BASE, **SPMD_SETTINGS}
+    cluster = _spmd_cluster(settings)
+    answers, out = {}, {}
+    try:
+        ctx = BallistaContext(*cluster.scheduler_addr, settings=settings,
+                              device=torch.device("cuda"))
+        register_all(ctx, data_dir)
+        for name, sql in [*((f"q{i}", (ROOT / f"benchmarks/tpch/queries/q{i}.sql").read_text())
+                            for i in range(1, 23)), ("q18_inner", Q18_INNER)]:
+            got, rec = _spmd_run(ctx, name, sql)
+            _compare(f"{name} (spmd)", got, local_answers[name])
+            rec["unfused_cold_ms"] = dist["queries"].get(name, {}).get("cold_ms")
+            answers[name], out[name] = got, rec
+            log(f"{name} (spmd): {rec}")
+        ctx.close()
+    finally:
+        cluster.shutdown()
+    mesh = [n for n, r in out.items() if r["last_path"] == "mesh"]
+    if not {"q1", "q18_inner", "q3"} <= set(mesh):
+        fail(f"spmd: q1, q18_inner and q3 must take the mesh path (mesh: {mesh})")
+    return {"queries": out, "mesh": mesh}, answers
+
+
+def _mesh4_part(data_dir: str, one_shard: dict) -> dict:
+    """q1, q18's inner aggregate and q3 on a four-shard mesh of the one card
+    (the device list repeated), each equal to the one-shard run: non-float
+    columns exactly, floats within phase 3's tolerance."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+
+    settings = {**BASE, **SPMD_SETTINGS}
+    cluster = _spmd_cluster(settings, mesh_devices=[torch.device("cuda")] * MESH4_SHARDS)
+    out = {}
+    try:
+        ctx = BallistaContext(*cluster.scheduler_addr, settings=settings,
+                              device=torch.device("cuda"))
+        register_all(ctx, data_dir)
+        for name in MESH4_QUERIES:
+            sql = Q18_INNER if name == "q18_inner" else (
+                ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()
+            got, rec = _spmd_run(ctx, name, sql)
+            if rec["last_path"] != "mesh":
+                fail(f"{name} (mesh x{MESH4_SHARDS}): took {rec['last_path']} ({rec})")
+            _compare(f"{name} (mesh x{MESH4_SHARDS} vs x1)", got, one_shard[name])
+            out[name] = rec
+            log(f"{name} (mesh x{MESH4_SHARDS}): {rec}")
+        ctx.close()
+    finally:
+        cluster.shutdown()
+    return out
+
+
+def _f32_sums_close(name: str, got, want, counts, abs_sums) -> None:
+    """f32 sums (any order, inputs and products rounded to f32) against a
+    float64 reference: |got - want| <= (count + 3) * 2^-24 * sum |x|, the
+    rounding bound of recursive summation plus three roundings per term."""
+    import numpy as np
+
+    tol = (counts + 3) * 2.0 ** -24 * abs_sums
+    err = np.abs(got - want)
+    if (err > tol).any():
+        fail(f"{name}: f32 sums differ past the rounding bound "
+             f"(max abs err {float(err.max())}, max err / bound {float((err / tol).max())})")
+
+
+def _demos_part(data_dir: str) -> dict:
+    """The mesh demos of parallel/spmd.py over lineitem's columns on a
+    four-shard mesh of the card: q1's step (group = returnflag x
+    linestatus) and the all_to_all exchange keyed on l_suppkey, each held
+    to a float64 numpy reference."""
+    import numpy as np
+    import pyarrow.compute as pc
+    import pyarrow.dataset as ds
+    import torch
+
+    from ballista_tpu_torch.parallel import spmd
+    from ballista_tpu_torch.parallel.mesh import build_mesh
+
+    t = ds.dataset(str(pathlib.Path(data_dir) / "lineitem")).to_table(columns=[
+        "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
+        "l_tax", "l_shipdate", "l_suppkey"])
+    n = (t.num_rows // MESH4_SHARDS) * MESH4_SHARDS
+    t = t.slice(0, n)
+    mesh = build_mesh({"data": MESH4_SHARDS}, [torch.device("cuda")] * MESH4_SHARDS)
+    key = pc.binary_join_element_wise(t["l_returnflag"], t["l_linestatus"], "")
+    enc = pc.dictionary_encode(key).combine_chunks()
+    codes = enc.indices.to_numpy().astype(np.int32)
+    G = len(enc.dictionary)
+    cols = [t[c].to_numpy().astype(np.float32) for c in
+            ("l_quantity", "l_extendedprice", "l_discount", "l_tax")]
+    ship = t["l_shipdate"].cast("int32").to_numpy()
+    cutoff = 10_471  # date '1998-09-02' in days
+    dev = [torch.from_numpy(a).cuda() for a in (codes, *cols, ship)]
+    got = spmd.build_q1_style_step(mesh, G, cutoff)(*dev).double().cpu().numpy()
+    m = ship <= cutoff
+    qty, price, disc, tax = (c.astype(np.float64) for c in cols)
+    refs = [np.ones(n), qty, price, price * (1 - disc), price * (1 - disc) * (1 + tax), disc]
+    want = np.stack([np.bincount(codes[m], weights=r[m], minlength=G) for r in refs])
+    counts = want[0]
+    if not np.array_equal(got[0], counts):
+        fail("q1-style mesh step: counts differ")
+    _f32_sums_close("q1-style mesh step", got[1:], want[1:], counts,
+                    np.stack([np.bincount(codes[m], weights=np.abs(r[m]), minlength=G)
+                              for r in refs[1:]]))
+
+    keys = t["l_suppkey"].to_numpy().astype(np.int32)
+    gps = -(-(int(keys.max()) + 1) // MESH4_SHARDS)
+    sums = spmd.build_all_to_all_exchange_aggregate(mesh)(
+        torch.from_numpy(keys).cuda(), dev[2], gps).double().cpu().numpy()
+    width = gps * MESH4_SHARDS
+    got_g = sums.reshape(MESH4_SHARDS, gps).T.reshape(-1)
+    _f32_sums_close("all_to_all exchange", got_g, np.bincount(keys, weights=price, minlength=width),
+                    np.bincount(keys, minlength=width),
+                    np.bincount(keys, weights=np.abs(price), minlength=width))
+    out = {"rows": n, "q1_groups": G, "exchange_keys": int(keys.max()) + 1}
+    log(f"phase 11 demos: {out}")
+    return out
+
+
+def _device_span_part(data_dir: str) -> dict:
+    """One span with device=True under a temporary BALLISTA_TRACE_DIR around
+    a q6 run on the card: the trace it leaves must name a CUDA kernel."""
+    import os
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine import ExecutionContext
+    from ballista_tpu_torch.utils import tracing
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    prev = os.environ.get("BALLISTA_TRACE_DIR")
+    os.environ["BALLISTA_TRACE_DIR"] = trace_dir
+    try:
+        ctx = ExecutionContext(BallistaConfig(BASE))
+        register_all(ctx, data_dir)
+        with tracing.span("chip_smoke.q6", device=True):
+            ctx.sql((ROOT / "benchmarks/tpch/queries/q6.sql").read_text()).collect()
+        files = sorted(pathlib.Path(trace_dir).glob("*.json"))
+        if len(files) != 1:
+            fail(f"device span: {len(files)} trace files in {trace_dir}")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        kernels = sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
+        if not kernels:
+            fail("device span: the trace names no CUDA kernel")
+        out = {"trace_bytes": files[0].stat().st_size, "cuda_kernels": len(kernels),
+               "examples": kernels[:3]}
+    finally:
+        if prev is None:
+            os.environ.pop("BALLISTA_TRACE_DIR", None)
+        else:
+            os.environ["BALLISTA_TRACE_DIR"] = prev
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    log(f"phase 11 device span: {out}")
+    return out
+
+
+def phase_shared_mesh(data_dir: str, local_answers: dict, dist: dict):
+    """Phase 11 (see the module docstring), over phase 3's data. Returns
+    its record and the kernels' launch counts during it."""
+    from ballista_tpu_torch.ops import cuda_kernels, kernels
+
+    t_phase = time.perf_counter()
+    store: dict = {}
+    restore = _capture_programs(store)
+    cuda_kernels.reset_launch_counts()
+    try:
+        result = {"shared_scan": _shared_scan_part(data_dir)}
+        result["spmd"], one_shard = _spmd_part(data_dir, local_answers, dist)
+        result["mesh4"] = _mesh4_part(data_dir, one_shard)
+        result["demos"] = _demos_part(data_dir)
+        launches = cuda_kernels.launch_counts()
+        result["device_span"] = _device_span_part(data_dir)
+    finally:
+        restore()
+        kernels.clear_stage_cache()
+    missing = [n for n in PROGRAMS if n not in store]
+    if missing:
+        fail(f"phase 11 never ran the device programs {missing}")
+    result["programs"] = [_program_record(n, store[n]) for n in PROGRAMS]
+    store.clear()
+    for rec in result["programs"]:
+        log(f"phase 11 program: {rec}")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 (shared scan, mesh stages, device span): {result['seconds']:.1f} s")
+    return result, launches
+
+
 def _local_record(times: dict) -> dict:
     """A local-engine query record of phases 3, 6 and 7, for phase 10."""
     return {"declines": _host_declines(times, times.get("join_paths", {})),
@@ -1830,6 +2291,9 @@ def main() -> int:
                 (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text()]
         dist_times, dist_launches = phase_distributed(data_dir, local, local_answers,
                                                       path_answers)
+        local_answers["q18_inner"] = path_answers[Q18_INNER]
+        shared_mesh_times, shared_mesh_launches = phase_shared_mesh(data_dir, local_answers,
+                                                                    dist_times)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -1839,12 +2303,14 @@ def main() -> int:
                                  "tpch": tpch_launches[k["name"]],
                                  "layout_cache": layout_launches[k["name"]],
                                  "join_shapes": shape_launches[k["name"]],
-                                 "distributed": dist_launches[k["name"]]}
+                                 "distributed": dist_launches[k["name"]],
+                                 "shared_mesh": shared_mesh_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"layout_cache": layout_times}))
     print(json.dumps({"distributed": dist_times}))
+    print(json.dumps({"shared_mesh": shared_mesh_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

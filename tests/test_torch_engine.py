@@ -210,6 +210,10 @@ def test_port_imports_neither_jax_nor_reference():
         "import ballista_tpu_torch.distributed.planner, ballista_tpu_torch.scheduler.server\n"
         "import ballista_tpu_torch.executor.runtime, ballista_tpu_torch.client.dbapi\n"
         "import ballista_tpu_torch.ops.exchange, ballista_tpu_torch.native\n"
+        "import ballista_tpu_torch.ops.sharedscan, ballista_tpu_torch.utils.tracing\n"
+        "import ballista_tpu_torch.parallel.mesh, ballista_tpu_torch.parallel.multihost\n"
+        "import ballista_tpu_torch.parallel.spmd, ballista_tpu_torch.parallel.spmd_stage\n"
+        "import ballista_tpu_torch.parallel.spmd_join\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ballista_tpu' or m.startswith('ballista_tpu.')]\n"
         "print(bad)\n"

@@ -27,6 +27,9 @@ from ballista_tpu_torch.engine import ExecutionContext
 
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-4, 1e-3
+# the JAX reference runs need no AOT disk tier: exporting each traced
+# program to .ballista_cache/aot was a large share of their time
+JAX_REFERENCE = {"ballista.executor.backend": "tpu", "ballista.tpu.aot_cache": ""}
 
 
 def _fresh():
@@ -74,7 +77,7 @@ def _run_both(paths, sql):
     from ballista_tpu_torch.ops import runtime as tr
 
     _fresh()
-    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    jctx = JaxContext(JaxConfig(JAX_REFERENCE))
     pctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cuda"}),
                             device="cpu")
     for name, p in paths.items():
@@ -237,7 +240,7 @@ def test_topk_int_sum_f32_collapse_boundary(tmp_path):
     sql = ("select fk, sum(amount) as s, attr from dim, fact "
            "where dk = fk group by fk, attr order by s desc limit 10")
     _fresh()
-    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    jctx = JaxContext(JaxConfig(JAX_REFERENCE))
     pctx = ExecutionContext(BallistaConfig({}), device="cpu")
     for name, p in paths.items():
         jctx.register_parquet(name, p)
@@ -554,7 +557,7 @@ def _both_stages(star, sql):
     from ballista_tpu_torch.ops.factagg import FactAggregateStage
 
     _fresh()
-    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    jctx = JaxContext(JaxConfig(JAX_REFERENCE))
     pctx = ExecutionContext(BallistaConfig({}), device="cpu")
     for name, p in star.items():
         jctx.register_parquet(name, p)
@@ -649,7 +652,7 @@ def test_secondary_entry_carries_derived_tiles(coupled_star):
     from ballista_tpu_torch.physical.plan import TaskContext
 
     _fresh()
-    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    jctx = JaxContext(JaxConfig(JAX_REFERENCE))
     pctx = ExecutionContext(BallistaConfig({}), device="cpu")
     for name, p in coupled_star.items():
         jctx.register_parquet(name, p)

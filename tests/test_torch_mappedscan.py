@@ -61,7 +61,10 @@ def _run_both(paths, sql):
     from ballista_tpu_torch.ops import runtime as tr
 
     _fresh()
-    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu"}))
+    # the reference run needs no AOT disk tier: exporting each traced
+    # program to .ballista_cache/aot was a large share of its time
+    jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu",
+                                 "ballista.tpu.aot_cache": ""}))
     pctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cuda"}),
                             device="cpu")
     for name, p in paths.items():

@@ -14,8 +14,10 @@ per table, seed 20261017).
   statement, the JAX package names them after id()), the bytes one package
   encodes decode in the other to the same plan text, both ways: the two
   packages are wire-compatible.
-- A mesh stage node (spmd_aggregate / spmd_join) raises the port's
-  SerdeError: the mesh stages are not ported yet.
+- A mesh stage node (spmd_aggregate / spmd_join) round-trips through the
+  port's serde, and the JAX package's bytes for it decode in the port to
+  the same plan. (The test keeps the name it had when the port raised
+  SerdeError for these nodes.)
 """
 
 import pathlib
@@ -141,12 +143,62 @@ def test_wire_compatible_with_reference(contexts, name):
 
 @pytest.mark.parametrize("which", ["spmd_aggregate", "spmd_join"])
 def test_mesh_stage_node_raises(contexts, which):
-    from ballista_tpu_torch.errors import SerdeError
+    """The mesh node wrapping q1's plan round-trips (bytes and text fixed
+    points after the first decode), and the JAX package's encoding of the
+    same node decodes in the port to the same plan text, both ways."""
+    from ballista_tpu.parallel.spmd_join import SpmdJoinExec as JaxJoin
+    from ballista_tpu.parallel.spmd_stage import SpmdAggregateExec as JaxAgg
+    from ballista_tpu.proto import ballista_pb2 as jpb
+    from ballista_tpu.serde import physical as jser
+    from ballista_tpu_torch.parallel.spmd_join import SpmdJoinExec
+    from ballista_tpu_torch.parallel.spmd_stage import SpmdAggregateExec
     from ballista_tpu_torch.proto import ballista_pb2 as pb
     from ballista_tpu_torch.serde.physical import phys_plan_from_proto, phys_plan_to_proto
 
-    port, _ = contexts
-    node = pb.PhysicalPlanNode()
-    getattr(node, which).subplan.CopyFrom(phys_plan_to_proto(_physical(port, "q1")))
-    with pytest.raises(SerdeError, match=which):
-        phys_plan_from_proto(node)
+    port, jax = contexts
+    name = "q1" if which == "spmd_aggregate" else "q3"
+    port_cls, jax_cls = ((SpmdAggregateExec, JaxAgg) if which == "spmd_aggregate"
+                         else (SpmdJoinExec, JaxJoin))
+
+    def inner(plan, cls):
+        """The subtree the mesh node wraps: q1's Final(Repartition(Partial))
+        or q3's first partitioned join."""
+        from ballista_tpu.physical import aggregate as jagg, join as jjoin
+        from ballista_tpu_torch.physical import aggregate as tagg, join as tjoin
+
+        def ok(n):
+            if cls in (SpmdAggregateExec, JaxAgg):
+                agg = tagg if cls is SpmdAggregateExec else jagg
+                return (isinstance(n, agg.HashAggregateExec) and n.mode == agg.AggregateMode.FINAL
+                        and isinstance(getattr(n.input, "input", None), agg.HashAggregateExec))
+            join = tjoin if cls is SpmdJoinExec else jjoin
+            return isinstance(n, join.HashJoinExec)
+
+        stack = [plan]
+        while stack:
+            n = stack.pop()
+            if ok(n):
+                return n
+            stack.extend(reversed(n.children()))
+        raise AssertionError(f"no subtree for {cls.__name__}")
+
+    node = port_cls(inner(_physical(port, name), port_cls))
+    wire = phys_plan_to_proto(node)
+    assert wire.WhichOneof("plan_type") == which
+    back = phys_plan_from_proto(wire)
+    assert isinstance(back, port_cls)
+    again = phys_plan_from_proto(phys_plan_to_proto(back))
+    assert phys_plan_to_proto(again).SerializeToString() == phys_plan_to_proto(back).SerializeToString()
+    assert again.subplan.display_indent() == back.subplan.display_indent()
+
+    jnode = jax_cls(inner(_physical(jax, name), jax_cls))
+    got = pb.PhysicalPlanNode()
+    got.ParseFromString(jser.phys_plan_to_proto(jnode).SerializeToString())
+    decoded = phys_plan_from_proto(got)
+    assert isinstance(decoded, port_cls)
+    assert decoded.subplan.display_indent() == back.subplan.display_indent()
+    jgot = jpb.PhysicalPlanNode()
+    jgot.ParseFromString(wire.SerializeToString())
+    jdecoded = jser.phys_plan_from_proto(jgot)
+    assert isinstance(jdecoded, jax_cls)
+    assert jdecoded.subplan.display_indent() == back.subplan.display_indent()

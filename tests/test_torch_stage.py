@@ -71,7 +71,10 @@ def _both_stages(path, settings, build):
     from ballista_tpu.ops.stage import FusedAggregateStage as JaxStage
     from ballista_tpu.physical.plan import TaskContext as JaxTaskContext
 
-    jctx = JaxContext(JaxConfig({**settings, "ballista.executor.backend": "tpu"}))
+    # the reference run needs no AOT disk tier: exporting each traced
+    # program to .ballista_cache/aot was a large share of its time
+    jctx = JaxContext(JaxConfig({**settings, "ballista.executor.backend": "tpu",
+                                 "ballista.tpu.aot_cache": ""}))
     jctx.register_parquet("t", path)
     jplan = jctx.create_physical_plan(build(jctx, jcol, JF, jlit).logical_plan())
     jstage = JaxStage(_aggregate_node(jplan))

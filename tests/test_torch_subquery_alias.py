@@ -113,7 +113,10 @@ def test_answers_match_reference(tpch_dir, name):
     from benchmarks.tpch.datagen import register_all
 
     got = _port_ctx(tpch_dir).sql(_sql(name)).collect()
-    jctx = JaxContext(JaxConfig({**SETTINGS, "ballista.executor.backend": "tpu"}))
+    # the reference run needs no AOT disk tier: exporting each traced
+    # program to .ballista_cache/aot was a large share of its time
+    jctx = JaxContext(JaxConfig({**SETTINGS, "ballista.executor.backend": "tpu",
+                                 "ballista.tpu.aot_cache": ""}))
     register_all(jctx, tpch_dir)
     want = jctx.sql(_sql(name)).collect()
     assert got.column_names == want.column_names
