@@ -723,3 +723,10 @@ class PollLoop:
                     )
                     status.failed.executor_id = self.metadata.id
                 report(td, status)
+            if self._stop.is_set():
+                # the executor stopped or died while this task ran: what the
+                # task published must not outlive it (BallistaExecutor._die
+                # dropped the entries published before the stop)
+                from ballista_tpu_torch.ops import exchange
+
+                exchange.evict_executor(self.metadata.id)

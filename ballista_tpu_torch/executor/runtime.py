@@ -91,7 +91,7 @@ class BallistaExecutor:
             # chaos executor.death must be a TOTAL death: heartbeats stop
             # AND the data plane goes away, so completed shuffle outputs
             # really become unreachable and lineage recovery is exercised
-            on_death=self.flight.shutdown,
+            on_death=self._die,
             device=self.device,
             mesh_devices=mesh_devices,
         )
@@ -113,9 +113,17 @@ class BallistaExecutor:
         self.poll_loop.start()
         log.info("executor %s serving flight on port %s", self.id, self.port)
 
+    def _die(self) -> None:
+        """The data plane goes with a dead executor: its Flight service and
+        its exchange registry entries."""
+        from ballista_tpu_torch.ops import exchange
+
+        self.flight.shutdown()
+        exchange.evict_executor(self.id)
+
     def stop(self) -> None:
         self.poll_loop.stop()
-        self.flight.shutdown()
+        self._die()
         self.scheduler_client.close()
 
 

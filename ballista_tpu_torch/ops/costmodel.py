@@ -11,11 +11,25 @@ ballista.tpu.cost_model_dir (default .ballista_cache/costmodel):
   entry key = op | engine | power-of-two units bucket
   entry     = {s: total seconds, units: total work units, n: observations}
 
-ops in use in this package: "join.gather" (units = padded gather elements)
-and "join.host" (units = build + probe rows, engine "host"). The file is
-``costs_torch.json``, not the JAX package's ``costs.json``: a flush rewrites
-its file under its own fingerprint and drops entries of another, so two
-packages sharing one directory would otherwise erase each other's evidence.
+ops in use in this package:
+- "join.gather" (units = padded gather elements) and "join.host" (units =
+  build + probe rows, engine "host"): the device join's admission;
+- "stage.run|<sha1 of the stage's stable key>" (units = leaf file bytes,
+  or rows of a memory scan): one observation per fused stage run
+  (ops/kernels.py);
+- "h2d" (units = bytes of one upload chunk) and "readback" (units = bytes
+  read back): ops/runtime.py's transfers, which the exchange registry
+  prices its evictions at;
+- "task.run|<shape>" (units = one task, engine "task") and "stage.batch"
+  (units = members of a shared-scan batch, engine "task"): the scheduler's
+  speculation thresholds and batch admission (scheduler/state.py);
+- "mesh.agg|…" / "mesh.agg.host|…" and "join.mesh": the mesh stages'
+  admission (parallel/spmd_stage.py, parallel/spmd_join.py).
+
+The file is ``costs_torch.json``, not the JAX package's ``costs.json``: a
+flush rewrites its file under its own fingerprint and drops entries of
+another, so two packages sharing one directory would otherwise erase each
+other's evidence.
 Entries carry the fingerprint of the writer (torch version, CUDA version,
 device name): a store written on another stack is ignored wholesale, since
 costs measured on one device must never steer another.

@@ -6,9 +6,10 @@ Arrow piece on disk/shared storage remains the authoritative fault-tolerant
 home, written exactly as before. A consuming shuffle reader on the SAME
 executor then resolves the piece straight from the registry: zero IPC
 decode, zero h2d re-upload. Anything else — eviction, budget pressure, a
-chaos verdict, executor death (the registry dies with the process) — falls
-through silently to the existing storage -> Flight peer -> lineage ladder,
-so bit-identity to the un-exchanged pipeline holds at every decision point.
+chaos verdict, executor death (evict_executor drops a stopped or dead
+executor's entries) — falls through silently to the existing storage ->
+Flight peer -> lineage ladder, so bit-identity to the un-exchanged pipeline
+holds at every decision point.
 
 On this (CPU) image the registered entries are the host-side Arrow batches
 the piece holds; on a device image the entry would additionally pin the
@@ -237,15 +238,27 @@ def evict(executor_id: str, job_id: str, stage_id: int, map_partition: int,
     return True
 
 
+def _evict_where(field: int, value: str) -> int:
+    """Drop every entry whose key holds `value` at `field`."""
+    with _reg_lock:
+        keys = [k for k in _entries if k[field] == value]
+        for key in keys:
+            _drop_entry_locked(key)
+    return len(keys)
+
+
 def evict_job(job_id: str) -> int:
     """Drop every entry of one job (the executor's TTL sweep rides this
     when it removes the job's work dir)."""
-    removed = 0
-    with _reg_lock:
-        for key in [k for k in _entries if k[1] == job_id]:
-            _drop_entry_locked(key)
-            removed += 1
-    return removed
+    return _evict_where(1, job_id)
+
+
+def evict_executor(executor_id: str) -> int:
+    """Drop every entry one executor published: once it stops or dies its
+    Flight service is gone and no other executor resolves its keys, so the
+    entries could only hold budget bytes (a StandaloneCluster keeps the
+    registry alive across its executors' deaths)."""
+    return _evict_where(0, executor_id)
 
 
 def attempt_of(executor_id: str, job_id: str, stage_id: int,

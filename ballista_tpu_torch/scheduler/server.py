@@ -1121,6 +1121,12 @@ class SchedulerServer:
                 break
             status, plan = assigned
             pid = status.partition_id
+            if (pid.job_id, pid.stage_id, pid.partition_id,
+                    status.attempt) in sub.outstanding:
+                # this attempt already holds credit here: pushing it again
+                # would run it twice and take no new credit, so the loop
+                # would never end (it holds the KV lock)
+                break
             self._push_seq += 1
             if self._chaos is not None and self._chaos.should_inject(
                 "scheduler.push",

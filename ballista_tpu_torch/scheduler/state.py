@@ -392,6 +392,12 @@ class SchedulerState:
         self._spec_max = self.config.speculation_max_attempts()  # durability: ephemeral(config snapshot)
         self._spec_launches: Dict[Tuple[str, int, int], int] = {}  # durability: derived(recover)
         self._spec_superseded: Dict[Tuple[str, int, int], set] = {}  # durability: ephemeral(superseded-attempt memory, the attempt floor retires late reports regardless)
+        # executors whose duplicate of the task failed in this episode: a
+        # failed duplicate retires its ledger entry, so without this memory
+        # the monitor would launch the next duplicate straight back onto
+        # the same executor (a fetch failure then repeats at once, round
+        # after round, until the task resolves)
+        self._spec_failed: Dict[Tuple[str, int, int], set] = {}  # durability: ephemeral(cleared with the episode; a restart may retry an executor once more)
         # running-task watch: (job, stage, part) -> (executor, attempt,
         # monotonic start). Maintained by save_task_status (the single task
         # write path), consumed by the straggler monitor and by the
@@ -559,6 +565,7 @@ class SchedulerState:
         fresh attempt later."""
         self._spec_del(key)
         self._spec_superseded.pop(key, None)
+        self._spec_failed.pop(key, None)
 
     def _spec_attempt_floor(self, key: Tuple[str, int, int]) -> int:
         """Highest speculative attempt ever minted for the task (the live
@@ -726,6 +733,8 @@ class SchedulerState:
             self._speculative.pop(key, None)
             self._spec_launches.pop(key, None)
             self._spec_superseded.pop(key, None)
+        for key in [k for k in self._spec_failed if k[0] == job_id]:
+            self._spec_failed.pop(key, None)
         for key in [k for k in self._running_since if k[0] == job_id]:
             self._running_since.pop(key, None)
         log.warning(
@@ -1721,6 +1730,7 @@ class SchedulerState:
                 # the speculation without touching the task (a failed
                 # duplicate never consumes the task's retry budget)
                 self._spec_del(key3)
+                self._spec_failed.setdefault(key3, set()).add(spec_exec)
                 _record_speculation("failed")
                 if w == "fetch_failed":
                     # the report still carries actionable lineage: the named
@@ -2166,6 +2176,9 @@ class SchedulerState:
         for key in list(self._spec_superseded):
             if job_finished(key[0]):
                 self._spec_superseded.pop(key, None)
+        for key in list(self._spec_failed):
+            if job_finished(key[0]):
+                self._spec_failed.pop(key, None)
         for key in list(self._batch_members):
             if job_finished(key[0]):
                 self._note_batch_member_done(key, clean=False)
@@ -2818,6 +2831,7 @@ class SchedulerState:
         if not self._spec_enabled or not self._running_since:
             return None
         now = time.monotonic()
+        alive = None
         if self._speculative:
             # sweep: a duplicate whose executor's lease lapsed is dead
             # weight — the primary still runs, so just drop the record
@@ -2893,10 +2907,20 @@ class SchedulerState:
             ):
                 self._running_since.pop(key3, None)
                 continue
-            if any(h.executor_id == executor_id for h in cur.history):
-                # this executor already failed an attempt of the task;
+            if any(h.executor_id == executor_id for h in cur.history) or (
+                executor_id in self._spec_failed.get(key3, ())
+            ):
+                # this executor already failed an attempt of the task (the
+                # primary's history, or a duplicate of this episode);
                 # don't bet the tail-latency rescue on it
                 continue
+            if alive is None:
+                alive = {m.id for m in self.get_executors_metadata()}
+            if executor_id not in alive:
+                # the sweep above drops a duplicate whose executor's lease
+                # lapsed; launching one there would be dropped and launched
+                # again on every call, each with the same attempt number
+                return None
             idx = self._ensure_task_index()
             bound = self._bound_stage_plan(job_id, stage_id, idx)
             if bound is None:

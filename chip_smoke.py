@@ -165,6 +165,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    multi-process mesh path cannot show here (one card, world size 1);
    tests/test_torch_multihost.py runs it over gloo on the CPU.
 
+12. serving (runs after phase 11, over phase 3's data): one
+   StandaloneCluster of two executors on the card, push dispatch and the
+   result cache on (their defaults), speculation armed (min_runtime_ms 100,
+   multiplier 2). (a) Tenants: q1, q3, q6, q12, q18 and q18's inner
+   aggregate (under ballista.tpu.sorted_kernel=pallas) run cold and warm
+   with the result cache off, then four client threads, each its own
+   tenant, replay 12 submissions drawn Zipf(1.6) from a fixed seed with the
+   cache on, then each query once more (a hit). Every answer is held to the
+   "cpu" answer of phases 3, 6 and 7 under phase 3's tolerance; the replay
+   must hit the cache and dispatch by push only; the executors must launch
+   sorted_grouped_sum. Prints cold, warm and hit ms per query, p50 and p99
+   per tenant, tenancy_stats and pushes against polls. (b) Streaming: q3
+   and q18 through collect_stream, bit-equal to collect; ms to the first
+   batch beside the whole. (c) Advancement: the two lineitem files
+   hard-linked into a new directory, ADVANCE_SQL (which scheduler/delta.py
+   must accept) run cold, a seeded slice of lineitem appended as a third
+   file: the rerun must advance (advance_hits 1) and equal a cache-off full
+   run on "cuda" and on "cpu" bit for bit; prints the advanced run's ms
+   beside the full runs'. (d) Speculation: q1, q6 and q12 clean, then
+   under task.slow chaos (rate 0.2, slow_ms 2000): at least one duplicate
+   launches and every answer is bit-equal to its clean pass. (e) Executor
+   loss: on the shared shuffle tier q3 and q18 run while one executor
+   stops (while it runs one of their tasks): answers bit-equal to clean runs,
+   recovery_stats counts the recovery and the stopped executor leaves no
+   entry in the exchange registry. Printed as one {"serving": ...} line.
+
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
 routing; phase 8 seeds its store where it says so.
@@ -178,7 +204,8 @@ No Pallas kernel lies on a join path in the JAX package either: both
 kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 
 Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
-line of phase 10, the {"shared_mesh": ...} line of phase 11, one {"ptxas": ...,
+line of phase 10, the {"shared_mesh": ...} line of phase 11, the
+{"serving": ...} line of phase 12, one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
 SASS opcodes of each library), one {"kernels": [...]} line, then the
@@ -2234,6 +2261,416 @@ def phase_shared_mesh(data_dir: str, local_answers: dict, dist: dict):
     return result, launches
 
 
+# -- phase 12: the serving tier ------------------------------------------------
+
+# the tenants' mix (benchmarks/tpch/queries/ and Q18_INNER): q18's inner
+# aggregate runs under PALLAS, so the executors launch sorted_grouped_sum
+SERVING_MIX = ["q1", "q3", "q6", "q12", "q18", "q18_inner"]
+SERVING_TENANTS, SERVING_SUBMISSIONS, SERVING_ZIPF, SERVING_SEED = 4, 12, 1.6, 20261017
+SERVING_STREAMED = ["q3", "q18"]
+# one cluster for the phase: speculation armed as tests/test_fuzz_device.py
+# arms it (the in-memory cost store of BASE holds the task.run rates), and
+# heartbeats that do not decay past 0.25 s, so (e)'s 1 s lease holds for a
+# live executor
+SERVING_CLUSTER = {"ballista.speculation.min_runtime_ms": "100",
+                   "ballista.speculation.multiplier": "2",
+                   "ballista.executor.idle_poll_max_s": "0.25"}
+SPEC_RATE = 0.2
+SPEC_CHAOS = {"ballista.chaos.rate": str(SPEC_RATE), "ballista.chaos.sites": "task.slow",
+              "ballista.chaos.slow_ms": "2000"}
+SPEC_QUERIES = ["q1", "q6", "q12"]
+# (c): an exact aggregate over lineitem whose cached state advances on append
+ADVANCE_SQL = ("select l_returnflag, l_linestatus, count(*) as c, sum(l_linenumber) as sl, "
+               "min(l_orderkey) as mn from lineitem where l_shipdate <= date '1998-09-02' "
+               "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+ADVANCE_ROWS = 200_000
+# (e): the queries running when an executor is lost, and the lease that
+# lets the scheduler notice the loss within the phase
+LOSS_QUERIES = ["q3", "q18"]
+LOSS_LEASE_S = 1.0
+
+
+def _serving_sql(name: str) -> tuple:
+    if name == "q18_inner":
+        return Q18_INNER, PALLAS
+    return (ROOT / f"benchmarks/tpch/queries/{name}.sql").read_text(), {}
+
+
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+def _timed_collect(ctx, sql: str):
+    import torch
+
+    t0 = time.perf_counter()
+    got = ctx.sql(sql).collect()
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def _tenants_part(client, answers: dict) -> dict:
+    """(a): cold and warm runs of the mix (result cache off), then four
+    tenants replaying seeded Zipf schedules concurrently with the cache on."""
+    import threading
+
+    from ballista_tpu_torch.ops import kernels, runtime
+
+    per_query = {}
+    for name in SERVING_MIX:
+        sql, extra = _serving_sql(name)
+        ctx = client({"ballista.cache.results": "false", **extra})
+        kernels.clear_stage_cache()
+        got, cold_ms = _timed_collect(ctx, sql)
+        _compare(f"{name} (serving, cold)", got, answers[name])
+        got, warm_ms = _timed_collect(ctx, sql)
+        _compare(f"{name} (serving, warm)", got, answers[name])
+        ctx.close()
+        per_query[name] = {"cold_ms": cold_ms, "warm_ms": warm_ms}
+    rng = np.random.default_rng(SERVING_SEED)
+    schedules = [[SERVING_MIX[(int(z) - 1) % len(SERVING_MIX)]
+                  for z in rng.zipf(SERVING_ZIPF, size=SERVING_SUBMISSIONS)]
+                 for _ in range(SERVING_TENANTS)]
+    for stats in (runtime.tenancy_stats, runtime.serving_stats):
+        stats(reset=True)
+    runs = [[] for _ in range(SERVING_TENANTS)]
+    errors = []
+
+    def replay(i):
+        try:
+            ctxs = {}
+            for name in schedules[i]:
+                sql, extra = _serving_sql(name)
+                key = tuple(sorted(extra.items()))
+                if key not in ctxs:
+                    ctxs[key] = client({"ballista.tenant.name": f"tenant{i}", **extra})
+                got, ms = _timed_collect(ctxs[key], sql)
+                runs[i].append((name, got, ms))
+            for ctx in ctxs.values():
+                ctx.close()
+        except Exception as e:  # reported below, failing the phase
+            errors.append(f"tenant{i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=replay, args=(i,)) for i in range(SERVING_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if any(th.is_alive() for th in threads):
+        fail("serving tenants: a tenant did not finish within 600 s")
+    if errors:
+        fail(f"serving tenants: {errors}")
+    tenancy = runtime.tenancy_stats(reset=True)
+    serving = runtime.serving_stats(reset=True)
+    tenants = {}
+    for i, rs in enumerate(runs):
+        for name, got, _ms in rs:
+            _compare(f"{name} (tenant{i})", got, answers[name])
+        ms = [r[2] for r in rs]
+        tenants[f"tenant{i}"] = {"submissions": len(rs), "p50_ms": _percentile(ms, 50),
+                                 "p99_ms": _percentile(ms, 99),
+                                 "schedule": schedules[i]}
+    hits = tenancy.get("cache_hit", 0)
+    if hits < 1 or hits + tenancy.get("cache_miss", 0) < SERVING_TENANTS * SERVING_SUBMISSIONS:
+        fail(f"serving tenants: cache_hit / cache_miss {tenancy}")
+    if serving.get("dispatch_push", 0) < 1 or serving.get("dispatch_poll", 0):
+        fail(f"serving tenants: pushes / polls {serving}")
+    # one more submission of each query: a hit on the entry the replay left
+    for name in SERVING_MIX:
+        sql, extra = _serving_sql(name)
+        ctx = client(extra)
+        got, per_query[name]["hit_ms"] = _timed_collect(ctx, sql)
+        ctx.close()
+        _compare(f"{name} (serving, hit)", got, answers[name])
+    if runtime.tenancy_stats(reset=True).get("cache_hit", 0) != len(SERVING_MIX):
+        fail("serving tenants: a repeat after the replay was not a cache hit")
+    return {"queries": per_query, "tenants": tenants, "wall_ms": wall_ms,
+            "tenancy": tenancy,
+            "pushes": serving.get("dispatch_push", 0), "polls": serving.get("dispatch_poll", 0),
+            "push_stats": {k: v for k, v in serving.items()
+                           if k.startswith(("dispatch_", "task_pushed", "push_", "status_push"))}}
+
+
+def _streaming_part(client) -> dict:
+    """(b): q3 and q18 through collect_stream, bit-equal to collect."""
+    import pyarrow as pa
+    import torch
+
+    out = {}
+    ctx = client({"ballista.cache.results": "false"})
+    for name in SERVING_STREAMED:
+        sql, _ = _serving_sql(name)
+        want, whole_ms = _timed_collect(ctx, sql)
+        t0 = time.perf_counter()
+        first_ms, batches = None, []
+        for batch in ctx.collect_stream(ctx.sql(sql).logical_plan()):
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            batches.append(batch)
+        torch.cuda.synchronize()
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        if not batches:
+            fail(f"{name} (streamed): no batch")
+        got = pa.Table.from_batches(batches, schema=batches[0].schema).cast(want.schema)
+        if not got.equals(want):
+            fail(f"{name} (streamed): not bit-equal to collect")
+        out[name] = {"first_batch_ms": first_ms, "stream_ms": stream_ms,
+                     "collect_ms": whole_ms, "batches": len(batches), "rows": got.num_rows}
+    ctx.close()
+    return out
+
+
+def _advance_part(client, data_dir: str, work: str) -> dict:
+    """(c): an exact aggregate over a copy of lineitem advances when a third
+    file is appended; the answer equals a cache-off full run on the "cpu"
+    backend, bit for bit."""
+    import os
+
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.ops import runtime
+    from ballista_tpu_torch.scheduler import delta
+
+    grow = pathlib.Path(work) / "grow"
+    li = grow / "lineitem"
+    li.mkdir(parents=True)
+    files = sorted((pathlib.Path(data_dir) / "lineitem").glob("*.parquet"))
+    for f in files:
+        os.link(f, li / f.name)
+    ctx = client({"ballista.cache.advance": "true"})
+    ctx.register_parquet("lineitem", str(li))
+    if delta.fold_spec(ctx.sql(ADVANCE_SQL).logical_plan()) is None:
+        fail("advance: scheduler/delta.py declines the advancement query")
+    runtime.delta_stats(reset=True)
+    cold, cold_ms = _timed_collect(ctx, ADVANCE_SQL)
+    # the appended file: a seeded slice of lineitem's rows
+    rng = np.random.default_rng(SERVING_SEED)
+    src = pq.read_table(files[0])
+    pick = np.sort(rng.choice(src.num_rows, size=min(ADVANCE_ROWS, src.num_rows),
+                              replace=False))
+    pq.write_table(src.take(pick), li / "part-appended.parquet")
+    ctx.register_parquet("lineitem", str(li))
+    advanced, advanced_ms = _timed_collect(ctx, ADVANCE_SQL)
+    stats = runtime.delta_stats(reset=True)
+    if stats.get("advance_hits", 0) != 1:
+        fail(f"advance: advance_hits != 1 ({stats})")
+    ctx.close()
+    full_ms = {}
+    for backend in ("cuda", "cpu"):
+        c = client({"ballista.cache.results": "false",
+                    "ballista.executor.backend": backend})
+        c.register_parquet("lineitem", str(li))
+        truth, full_ms[backend] = _timed_collect(c, ADVANCE_SQL)
+        c.close()
+        if not advanced.equals(truth):
+            fail(f"advance: the advanced answer differs from a full run on {backend}")
+    if advanced.equals(cold):
+        fail("advance: the appended rows did not change the answer")
+    return {"cold_ms": cold_ms, "advanced_ms": advanced_ms, "full_cuda_ms": full_ms["cuda"],
+            "full_cpu_ms": full_ms["cpu"], "appended_rows": int(len(pick)),
+            "delta_stats": stats, "bit_equal_to_cpu_full_run": True}
+
+
+def _job_ids(state) -> set:
+    return {k.rsplit("/", 1)[1] for k, _v in state.kv.get_prefix(state._key("jobs"))}
+
+
+def _task_coords(state, jobs: set) -> list:
+    """(stage, partition) of every task of `jobs` (keys tasks/job/stage/p)."""
+    out = set()
+    for k, _v in state.kv.get_prefix(state._key("tasks")):
+        _, job, stage, part = k.rsplit("/", 3)
+        if job in jobs:
+            out.add((int(stage), int(part)))
+    return sorted(out)
+
+
+def _spec_seed(coords) -> int:
+    """The first chaos seed that slows a task of `coords` at attempt 0 and
+    not its duplicate (attempt 1): task.slow verdicts hash (stage,
+    partition, attempt), not the job, so the clean pass's tasks predict the
+    chaos pass's."""
+    from ballista_tpu_torch.utils.chaos import ChaosInjector
+
+    for seed in range(2000):
+        inj = ChaosInjector(seed, SPEC_RATE, sites=("task.slow",))
+        if any(inj.should_inject("task.slow", f"{s}/{p}@a0")
+               and not inj.should_inject("task.slow", f"{s}/{p}@a1") for s, p in coords):
+            return seed
+    fail("speculation: no chaos seed slows a task")
+
+
+def _speculation_part(cluster, client) -> dict:
+    """(d): a clean warm pass, then the same queries under seeded task.slow
+    stragglers: at least one duplicate launches, answers bit-equal."""
+    from ballista_tpu_torch.ops import runtime
+
+    state = cluster.scheduler_impl.state
+    base = {"ballista.cache.results": "false"}
+    before = _job_ids(state)
+    ctx = client(base)
+    clean = {name: _timed_collect(ctx, _serving_sql(name)[0]) for name in SPEC_QUERIES}
+    ctx.close()
+    coords = _task_coords(state, _job_ids(state) - before)
+    if not coords:
+        fail("speculation: the clean pass left no task in the scheduler's store")
+    seed = _spec_seed(coords)
+    runtime.speculation_stats(reset=True)
+    runtime.recovery_stats(reset=True)
+    ctx = client({**base, **SPEC_CHAOS, "ballista.chaos.seed": str(seed)})
+    chaotic = {name: _timed_collect(ctx, _serving_sql(name)[0]) for name in SPEC_QUERIES}
+    ctx.close()
+    spec = runtime.speculation_stats(reset=True)
+    rec = runtime.recovery_stats(reset=True)
+    for name in SPEC_QUERIES:
+        if not chaotic[name][0].equals(clean[name][0]):
+            fail(f"speculation: {name} under task.slow differs from its clean pass")
+    if rec.get("chaos_slow_injected", 0) < 1 or spec.get("launched", 0) < 1:
+        fail(f"speculation: no duplicate launched ({spec}, {rec})")
+    return {"clean_ms": {n: v[1] for n, v in clean.items()},
+            "chaos_ms": {n: v[1] for n, v in chaotic.items()},
+            "chaos_seed": seed, "speculation_stats": spec,
+            "slowed": rec.get("chaos_slow_injected", 0),
+            "bit_equal": True}
+
+
+def _loss_part(cluster, client, work: str) -> dict:
+    """(e): on the shared shuffle tier, the first executor seen running a
+    task of q3 or q18 stops; the answers equal the clean runs,
+    recovery_stats counts the recovery, and the stopped executor leaves no
+    exchange entry."""
+    import ballista_tpu_torch.scheduler.state as state_mod
+    from ballista_tpu_torch.ops import exchange, runtime
+
+    shared = {"ballista.cache.results": "false", "ballista.shuffle.tier": "shared",
+              "ballista.shuffle.dir": str(pathlib.Path(work) / "shuffle")}
+    ctx = client(shared)
+    clean = {name: ctx.sql(_serving_sql(name)[0]).collect() for name in LOSS_QUERIES}
+    plans = {name: ctx.sql(_serving_sql(name)[0]).logical_plan() for name in LOSS_QUERIES}
+    state = cluster.scheduler_impl.state
+    old_lease = state_mod.EXECUTOR_LEASE_SECS
+    state_mod.EXECUTOR_LEASE_SECS = LOSS_LEASE_S
+    cluster.scheduler_impl.lost_task_check_interval = 0.3
+    # a speculative duplicate would finish the stopped executor's task before
+    # its lease lapses; (e) holds the lease path, so no task speculates here
+    old_floor = state._spec_floor_s
+    state._spec_floor_s = float("inf")
+    # every executor's next heartbeat writes its lease with LOSS_LEASE_S
+    polls = [ex.poll_loop._poll_n for ex in cluster.executors]
+    while any(ex.poll_loop._poll_n < n + 2 for ex, n in zip(cluster.executors, polls)):
+        time.sleep(0.05)
+    runtime.recovery_stats(reset=True)
+    runtime.shuffle_tier_stats(reset=True)
+    try:
+        t0 = time.perf_counter()
+        jobs = {name: ctx.submit(plan) for name, plan in plans.items()}
+
+        def running_executor():
+            """The first executor that holds a task of the two jobs."""
+            for ex in cluster.executors:
+                with ex.poll_loop._inflight_mu:
+                    if any(key[0] in jobs.values() for key in ex.poll_loop._inflight):
+                        return ex
+            return None
+
+        def jobs_done() -> bool:
+            return all(state.get_job_metadata(j).WhichOneof("status") == "completed"
+                       for j in jobs.values())
+
+        victim = running_executor()
+        while victim is None:
+            if jobs_done():
+                fail("executor loss: both jobs ended before an executor was seen "
+                     "running one of their tasks")
+            time.sleep(0.002)
+            victim = running_executor()
+        running = [n for n, j in jobs.items()
+                   if state.get_job_metadata(j).WhichOneof("status") != "completed"]
+        victim.stop()
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        got = {name: ctx._collect_results(job, plans[name].schema(), timeout=300)
+               for name, job in jobs.items()}
+        loss_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        state_mod.EXECUTOR_LEASE_SECS = old_lease
+        state._spec_floor_s = old_floor
+    ctx.close()
+    rec = runtime.recovery_stats(reset=True)
+    tier = runtime.shuffle_tier_stats(reset=True)
+    for name in LOSS_QUERIES:
+        if not got[name].equals(clean[name]):
+            fail(f"executor loss: {name} differs from its clean run")
+    if not running:
+        fail("executor loss: both jobs had finished before the executor stopped")
+    recovered = {k: v for k, v in rec.items()
+                 if k in ("task_retry", "lost_task_reset", "orphan_reassigned",
+                          "result_partition_restarted", "fetch_failed", "map_recomputed")}
+    if not recovered:
+        fail(f"executor loss: recovery_stats counts no recovery ({rec})")
+    with exchange._reg_lock:
+        left = [k for k in exchange._entries if k[0] == victim.id]
+    if left:
+        fail(f"executor loss: {len(left)} exchange entries of {victim.id} remain")
+    return {"victim": victim.id, "running_at_loss": running, "stop_after_ms": stop_ms,
+            "wall_ms": loss_ms, "recovery_stats": rec, "shuffle_tier": tier,
+            "registry_entries_left": 0, "bit_equal": True}
+
+
+def phase_serving(data_dir: str, answers: dict):
+    """Phase 12 (see the module docstring), over phase 3's data. `answers`
+    maps each query of SERVING_MIX to the "cpu" backend's answer of phases
+    3, 6 and 7. Returns its record and the kernels' launch counts in it."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.runtime import StandaloneCluster
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    settings = {**BASE, "ballista.tpu.layout_cache_dir": str(pathlib.Path(work) / "layouts")}
+    device = torch.device("cuda")
+    kernels.clear_stage_cache()
+    runtime.reset_residency()
+    cuda_kernels.reset_launch_counts()
+    cluster = StandaloneCluster(n_executors=2, device=device,
+                                config=BallistaConfig({**settings, **SERVING_CLUSTER}))
+    result = {}
+    try:
+        def client(extra=None):
+            ctx = BallistaContext(*cluster.scheduler_addr,
+                                  settings={**settings, **(extra or {})}, device=device)
+            register_all(ctx, data_dir)
+            return ctx
+
+        parts = (("tenants", lambda: _tenants_part(client, answers)),
+                 ("streaming", lambda: _streaming_part(client)),
+                 ("advance", lambda: _advance_part(client, data_dir, work)),
+                 ("speculation", lambda: _speculation_part(cluster, client)),
+                 ("executor_loss", lambda: _loss_part(cluster, client, work)))
+        for name, part in parts:
+            t0 = time.perf_counter()
+            result[name] = part()
+            result[name]["seconds"] = time.perf_counter() - t0
+            log(f"phase 12 {name}: {result[name]}")
+        launches = cuda_kernels.launch_counts()
+        if launches["sorted_grouped_sum"] < 1:
+            fail("serving: the executors never launched sorted_grouped_sum")
+    finally:
+        cluster.shutdown()
+        kernels.clear_stage_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 (serving): {result['seconds']:.1f} s")
+    return result, launches
+
+
 def _local_record(times: dict) -> dict:
     """A local-engine query record of phases 3, 6 and 7, for phase 10."""
     return {"declines": _host_declines(times, times.get("join_paths", {})),
@@ -2294,6 +2731,8 @@ def main() -> int:
         local_answers["q18_inner"] = path_answers[Q18_INNER]
         shared_mesh_times, shared_mesh_launches = phase_shared_mesh(data_dir, local_answers,
                                                                     dist_times)
+        serving_times, serving_launches = phase_serving(
+            data_dir, {name: local_answers[name] for name in SERVING_MIX})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -2304,13 +2743,15 @@ def main() -> int:
                                  "layout_cache": layout_launches[k["name"]],
                                  "join_shapes": shape_launches[k["name"]],
                                  "distributed": dist_launches[k["name"]],
-                                 "shared_mesh": shared_mesh_launches[k["name"]]}
+                                 "shared_mesh": shared_mesh_launches[k["name"]],
+                                 "serving": serving_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
     print(json.dumps({"layout_cache": layout_times}))
     print(json.dumps({"distributed": dist_times}))
     print(json.dumps({"shared_mesh": shared_mesh_times}))
+    print(json.dumps({"serving": serving_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -214,6 +214,13 @@ def test_port_imports_neither_jax_nor_reference():
         "import ballista_tpu_torch.parallel.mesh, ballista_tpu_torch.parallel.multihost\n"
         "import ballista_tpu_torch.parallel.spmd, ballista_tpu_torch.parallel.spmd_stage\n"
         "import ballista_tpu_torch.parallel.spmd_join\n"
+        "import ballista_tpu_torch.scheduler.state, ballista_tpu_torch.scheduler.rpc\n"
+        "import ballista_tpu_torch.scheduler.kv, ballista_tpu_torch.scheduler.delta\n"
+        "import ballista_tpu_torch.scheduler.fingerprint, ballista_tpu_torch.utils.chaos\n"
+        "import ballista_tpu_torch.executor.execution_loop\n"
+        "import ballista_tpu_torch.executor.flight_service, ballista_tpu_torch.client.context\n"
+        "import ballista_tpu_torch.client.flight, ballista_tpu_torch.distributed.stages\n"
+        "import ballista_tpu_torch.ops.costmodel, ballista_tpu_torch.ops.runtime\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ballista_tpu' or m.startswith('ballista_tpu.')]\n"
         "print(bad)\n"

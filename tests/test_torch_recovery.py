@@ -117,9 +117,14 @@ def test_executor_death_is_bit_identical(pkg, sales_table):
     old_lease = state_mod.EXECUTOR_LEASE_SECS
     state_mod.EXECUTOR_LEASE_SECS = 1.0
     recovery_stats(reset=True)
+    # heartbeats held at their 0.25 s floor keep a live executor's 1 s lease
+    # fresh: a lapsed lease under a straggler makes the JAX package's push
+    # pump relaunch one speculative attempt for ever under the KV lock
+    # (ROADMAP §3, F5)
     cluster = _cluster(pkg, {"ballista.chaos.rate": "0.005",
                              "ballista.chaos.seed": str(_death_seed(injector)),
-                             "ballista.chaos.sites": "executor.death"})
+                             "ballista.chaos.sites": "executor.death",
+                             "ballista.executor.idle_poll_max_s": "0.25"})
     cluster.scheduler_impl.lost_task_check_interval = 0.3
     try:
         out = _run(pkg, cluster, CHAOS, sales_table)
