@@ -2,11 +2,19 @@
 
 (ref rust/executor/src/main.rs: config parse; --local spins an in-process
 scheduler first, main.rs:101-138; start Flight server; run the poll loop.)
+
+SIGINT stops the executor cleanly and logs one JSON line,
+{"executor_stop": {...}}, with what ran in this process: kernel launches,
+the libraries it loaded, routes, shuffle-tier and exchange counters. Those
+counters live in this process only; the line is how a caller reads them.
+SIGTERM and SIGKILL end the process without a stop.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import tempfile
 import time
 
@@ -18,11 +26,37 @@ from ballista_tpu_torch.scheduler.server import SchedulerServer, serve
 
 
 # the executor daemon's spec: the shared one with the port's backends (the
-# device stages default to "cuda") and the torch device they run on
+# device stages default to "cuda"), the torch device they run on, and
+# ballista.tpu.prewarm (without it a library on no route never loads)
 _SPEC = [
     ("backend", "cuda", "kernel backend: cuda | cpu") if name == "backend" else (name, default, help_)
     for name, default, help_ in EXECUTOR_SPEC
-] + [("device", "", "torch device of the device stages ('' = the GPU; cpu)")]
+] + [
+    ("device", "", "torch device of the device stages ('' = the GPU; cpu)"),
+    ("prewarm", False, "load every kernel library before serving"),
+]
+
+
+def stop_record(executor: BallistaExecutor, backend: str) -> dict:
+    """The {"executor_stop": ...} line's object: this process's counters
+    and, on a card, the device memory its allocator held at most."""
+    import torch
+
+    from ballista_tpu_torch.ops import cuda_kernels, runtime
+
+    on_card = executor.device.type == "cuda" and torch.cuda.is_initialized()
+    return {"executor_stop": {
+        "id": executor.id,
+        "pid": os.getpid(),
+        "backend": backend,
+        "device": str(executor.device),
+        "launch_counts": cuda_kernels.launch_counts(),
+        "kernel_libraries": cuda_kernels.loaded_libraries(),
+        "routing_stats": runtime.routing_stats(),
+        "shuffle_tier_stats": runtime.shuffle_tier_stats(),
+        "exchange_stats": runtime.exchange_stats(),
+        "max_memory_reserved": torch.cuda.max_memory_reserved() if on_card else 0,
+    }}
 
 
 def main() -> None:
@@ -64,6 +98,7 @@ def main() -> None:
                 # the daemon's GC sweep owns this root's TTL
                 "ballista.shuffle.tier": cfg["shuffle_tier"],
                 "ballista.shuffle.dir": cfg["shuffle_dir"],
+                "ballista.tpu.prewarm": str(cfg["prewarm"]).lower(),
             }
         ),
     )
@@ -74,10 +109,15 @@ def main() -> None:
         executor.device,
     )
     try:
+        # short sleeps: a SIGINT that the kernel delivers to another of this
+        # process's threads (grpc's, Arrow Flight's) only sets Python's
+        # flag, and the main thread raises KeyboardInterrupt when its sleep
+        # ends; with time.sleep(3600) the stop came up to an hour late
         while True:
-            time.sleep(3600)
+            time.sleep(0.5)
     except KeyboardInterrupt:
         executor.stop()
+        log.info("%s", json.dumps(stop_record(executor, cfg["backend"]), default=str))
 
 
 if __name__ == "__main__":

@@ -56,6 +56,8 @@ _launches: Dict[str, int] = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
 
 _build_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
+# per library compiled by this process: the seconds its nvcc took
+_compiled_s: Dict[str, float] = {}  # guarded-by: _build_lock
 
 
 def launch_counts() -> Dict[str, int]:
@@ -65,6 +67,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def loaded_libraries() -> Dict[str, Optional[float]]:
+    """{name: compile seconds in this process, or None when the library
+    was found on disk} for every kernel library this process has loaded."""
+    with _build_lock:
+        return {name: _compiled_s.get(name) for name in _libs}
 
 
 def _nvcc() -> str:
@@ -207,7 +216,7 @@ def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
         _log_path(src, key).write_text(text)
         os.replace(tmp, _lib_path(src, key))
         record_serving("kernel_built")
-        out[src.stem]["seconds"] = time.perf_counter() - t0
+        out[src.stem]["seconds"] = _compiled_s[src.stem] = time.perf_counter() - t0
         built[key] = {"name": src.stem, "library": _lib_path(src, key).name,
                       "flags": NVCC_FLAGS, "nvcc": version.splitlines()[-1],
                       "capability": capability, "built_at": time.time()}
@@ -249,15 +258,19 @@ def prewarm(config, device=None) -> int:
         return 0
     from ballista_tpu_torch.ops.runtime import record_serving
 
-    loaded = 0
+    # the libraries not loaded yet are found or built together (one nvcc per
+    # missing source, all started at once), then loaded
+    with _build_lock:
+        loaded = [src.stem for src in _sources() if src.stem not in _libs]
+        found = _ensure_built_locked(loaded)
+        for name in loaded:
+            _load_locked(name, found[name])
     for src in _sources():
-        with _build_lock:
-            fresh = src.stem not in _libs
-        _load(src.stem)
-        if fresh:
-            loaded += 1
+        if src.stem in loaded:
             record_serving("compile_prewarmed")
-    return loaded
+        else:
+            record_serving("compile_hit_memory")
+    return len(loaded)
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -314,19 +327,25 @@ def _load(name: str) -> ctypes.CDLL:
         if lib is not None:
             record_serving("compile_hit_memory")
             return lib
-        path = _ensure_built_locked([name])[name]["library"]
-        if not path.exists():
-            raise RuntimeError(f"kernel library {path} was not built")
-        lib = ctypes.CDLL(str(path))
-        _bind(name, lib)
-        if (name == "sorted_grouped_sum"
-                and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
-            raise RuntimeError(
-                f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
-                f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
-            )
-        _libs[name] = lib
-        return lib
+        return _load_locked(name, _ensure_built_locked([name])[name])
+
+
+# holds-lock: _build_lock
+def _load_locked(name: str, found: dict) -> ctypes.CDLL:
+    """Load and bind the library `found` (an entry of _ensure_built_locked)."""
+    path = found["library"]
+    if not path.exists():
+        raise RuntimeError(f"kernel library {path} was not built")
+    lib = ctypes.CDLL(str(path))
+    _bind(name, lib)
+    if (name == "sorted_grouped_sum"
+            and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
+        raise RuntimeError(
+            f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
+            f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
+        )
+    _libs[name] = lib
+    return lib
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:

@@ -46,8 +46,12 @@ def main() -> None:
         backend, cfg["namespace"], cfg["port"],
     )
     try:
+        # short sleeps: a SIGINT that the kernel delivers to another of this
+        # process's threads (grpc's, Arrow Flight's) only sets Python's
+        # flag, and the main thread raises KeyboardInterrupt when its sleep
+        # ends; with time.sleep(3600) the stop came up to an hour late
         while True:
-            time.sleep(3600)
+            time.sleep(0.5)
     except KeyboardInterrupt:
         server.stop(grace=2)
 

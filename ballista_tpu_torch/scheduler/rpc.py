@@ -139,11 +139,17 @@ class SchedulerGrpcClient:
             ep = (ep[0], int(ep[1]))
             if ep not in self.endpoints:
                 self.endpoints.append(ep)
-        self._channels: dict = {}
+        # endpoint index -> channel, and (index, method) -> stub;
+        # replaced together when a channel that never connected is dropped
+        # (_drop_unconnected)
+        self._chan_mu = make_lock("scheduler.rpc._chan_mu")
+        self._channels: dict = {}  # guarded-by: self._chan_mu
+        # a caller's channel is the caller's to close: it is never dropped
+        self._given = channel
         if channel is not None:
             self._channels[0] = channel
         self._active = 0
-        self._stub_cache: dict = {}
+        self._stub_cache: dict = {}  # guarded-by: self._chan_mu
         self.retries = max(0, retries)
         self.backoff_s = backoff_s
         self.chaos = chaos
@@ -159,6 +165,11 @@ class SchedulerGrpcClient:
         return self._channel(self._active)
 
     def _channel(self, idx: int) -> grpc.Channel:
+        with self._chan_mu:
+            return self._channel_locked(idx)
+
+    # holds-lock: self._chan_mu
+    def _channel_locked(self, idx: int) -> grpc.Channel:
         ch = self._channels.get(idx)
         if ch is None:
             h, p = self.endpoints[idx]
@@ -171,21 +182,40 @@ class SchedulerGrpcClient:
     def _stub(self, name: str, stream: bool = False):
         idx = self._active
         key = (idx, name)
-        stub = self._stub_cache.get(key)
-        if stub is None:
-            factory = (
-                self._channel(idx).unary_stream
-                if stream
-                else self._channel(idx).unary_unary
-            )
-            resp_cls = (_STREAM_METHODS if stream else _METHODS)[name][1]
-            stub = factory(
-                f"/{SERVICE_NAME}/{name}",
-                request_serializer=lambda m: m.SerializeToString(),
-                response_deserializer=resp_cls.FromString,
-            )
-            self._stub_cache[key] = stub
-        return stub
+        with self._chan_mu:
+            stub = self._stub_cache.get(key)
+            if stub is None:
+                ch = self._channel_locked(idx)
+                factory = ch.unary_stream if stream else ch.unary_unary
+                resp_cls = (_STREAM_METHODS if stream else _METHODS)[name][1]
+                stub = factory(
+                    f"/{SERVICE_NAME}/{name}",
+                    request_serializer=lambda m: m.SerializeToString(),
+                    response_deserializer=resp_cls.FromString,
+                )
+                self._stub_cache[key] = stub
+            return stub
+
+    def _drop_unconnected(self, idx: int, detail: str) -> None:
+        """Close endpoint `idx`'s channel after a call failed to CONNECT
+        to it, so the next call opens a fresh channel and connects at once.
+        A channel that failed to connect waits out grpc's own reconnect
+        backoff, which the reconnect options above do not bound: a process
+        started before its scheduler (docker-compose starts them together)
+        went on failing for 3-10 s after the scheduler was up. The channel
+        holds no live call (it never connected), so closing it loses
+        nothing; a call that did connect and then failed keeps its
+        channel."""
+        if "failed to connect" not in detail:
+            return
+        with self._chan_mu:
+            ch = self._channels.get(idx)
+            if ch is None or ch is self._given:
+                return
+            del self._channels[idx]
+            for key in [k for k in self._stub_cache if k[0] == idx]:
+                del self._stub_cache[key]
+        ch.close()
 
     def active_endpoint(self):
         return self.endpoints[self._active]
@@ -241,11 +271,18 @@ class SchedulerGrpcClient:
 
         attempts = self.retries + 1
         for i in range(attempts):
+            idx = self._active
             try:
                 if self.chaos is not None:
                     self.chaos.maybe_fail("rpc.call", self._chaos_key(name))
                 return self._stub(name)(params)
             except ChaosInjected as e:
+                transient, detail, err = True, str(e), e
+            except ValueError as e:
+                # another thread closed this channel after a failed connect
+                # (_drop_unconnected) between taking its stub and calling
+                if "closed channel" not in str(e):
+                    raise
                 transient, detail, err = True, str(e), e
             except grpc.RpcError as e:
                 code = e.code() if hasattr(e, "code") else None
@@ -264,6 +301,8 @@ class SchedulerGrpcClient:
                     also_transient is not None and also_transient(detail)
                 )
                 err = e
+                if code == grpc.StatusCode.UNAVAILABLE:
+                    self._drop_unconnected(idx, detail or "")
             if not transient or i + 1 >= attempts:
                 raise RpcError(f"{name} failed: {detail}") from err
             record_recovery("rpc_retry")
@@ -326,5 +365,7 @@ class SchedulerGrpcClient:
         )
 
     def close(self) -> None:
-        for ch in self._channels.values():
+        with self._chan_mu:
+            channels = list(self._channels.values())
+        for ch in channels:
             ch.close()

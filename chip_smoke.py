@@ -191,6 +191,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    recovery_stats counts the recovery and the stopped executor leaves no
    entry in the exchange registry. Printed as one {"serving": ...} line.
 
+13. daemons (runs after phase 12, over phase 3's data): the deployment of
+   deployment/docker-compose.yaml on one card, through the package's own
+   daemons as processes (ballista_tpu_torch/daemons.py): `python -m
+   ballista_tpu_torch.scheduler --config-backend sqlite` and two `python -m
+   ballista_tpu_torch.executor --shuffle-tier shared --prewarm
+   --concurrent-tasks 1` (the card is their default device), started at
+   once from a copy of the package with no build/ directory, and a
+   BallistaContext in this process. (c) Both executors build the kernel
+   libraries at once and both load both; prints each process's seconds to
+   its start line and its compile seconds. (a) DAEMON_QUERIES run cold and
+   twice warm, each held to the "cpu" answer of phases 3, 6 and 7 under
+   phase 3's tolerance, beside phase 10's ms. (b) nvidia-smi
+   --query-compute-apps must list both executor pids with memory (where it
+   lists no pid of this pid namespace, each executor's own allocator must
+   show reserved memory); each executor's stop line (SIGINT) must show the
+   route pallas_sorted and both libraries, and together at least one
+   sorted_grouped_sum launch per scan partition and run of q18-inner. (d)
+   Two new executors start on the now warm build directory; DAEMON_KILL runs
+   clean, then with one map task slowed by seeded task.slow chaos, and the
+   other executor is SIGKILLed once its map output is on the shared tier
+   and it holds no task: the answer must be bit-equal to the clean run, the
+   final stage must run on the survivor, and the seconds from the kill to
+   the answer (and any wait for the 60 s executor lease) are printed. (e)
+   SIGINT stops the survivor (which must have read pieces from the shared
+   tier) and the scheduler; every daemon still alive is killed in a
+   finally, which then fails the run. Printed as one {"daemons": ...} line;
+   the executors' launches count in the kernels line.
+
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
 routing; phase 8 seeds its store where it says so.
@@ -205,7 +233,8 @@ kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 
 Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
 line of phase 10, the {"shared_mesh": ...} line of phase 11, the
-{"serving": ...} line of phase 12, one {"ptxas": ...,
+{"serving": ...} line of phase 12, the {"daemons": ...} line of phase 13,
+one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
 SASS opcodes of each library), one {"kernels": [...]} line, then the
@@ -2671,6 +2700,236 @@ def phase_serving(data_dir: str, answers: dict):
     return result, launches
 
 
+# -- phase 13: the daemons ----------------------------------------------------
+
+# (a): the queries through the daemons, cold then warm DAEMON_WARM times; q18's
+# inner aggregate under PALLAS runs the kernel inside the executors
+DAEMON_QUERIES = ["q1", "q3", "q5", "q6", "q12", "q18", "q18_inner"]
+DAEMON_WARM = 2
+# (d): the query whose map stage outlives one executor, and the seeded
+# straggler that holds the stage open while the other executor dies
+DAEMON_KILL = "q3"
+DAEMON_SLOW_RATE, DAEMON_SLOW_MS = 0.3, 2000
+EXECUTOR_LEASE_S = 60.0  # scheduler/state.py EXECUTOR_LEASE_SECS
+
+
+def _compute_apps() -> dict:
+    """{pid: MiB} of the card's compute processes, from nvidia-smi."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi --query-compute-apps failed: {smi.stderr.strip()}")
+    apps = {}
+    for line in smi.stdout.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = float(mib.strip() or 0)
+    return apps
+
+
+def _daemon_run(ctx, sql):
+    import torch
+
+    t0 = time.perf_counter()
+    got = ctx.sql(sql).collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def _daemon_queries(client, answers: dict, dist: dict) -> dict:
+    """(a): cold and warm runs through the daemons, each held to the "cpu"
+    answer, beside phase 10's ms for the same query."""
+    out = {}
+    for name in DAEMON_QUERIES:
+        sql, extra = _serving_sql(name)
+        ctx = client(extra)
+        got, cold_ms = _daemon_run(ctx, sql)
+        _compare(f"{name} (daemons, cold)", got, answers[name])
+        warm = []
+        for _ in range(DAEMON_WARM):
+            got, ms = _daemon_run(ctx, sql)
+            _compare(f"{name} (daemons, warm)", got, answers[name])
+            warm.append(ms)
+        ctx.close()
+        ref = (dist.get("kernel", {}) if name == "q18_inner" else dist.get("queries", {}))
+        ref = ref.get(name, {})
+        out[name] = {"cold_ms": cold_ms, "warm_ms": statistics.median(warm), "warm_runs_ms": warm,
+                     "phase10_cold_ms": ref.get("cold_ms", ref.get("ms")),
+                     "phase10_warm_ms": ref.get("warm_ms")}
+        log(f"{name} (daemons): {out[name]}")
+    return out
+
+
+def _kill_part(cluster, client, answers: dict) -> dict:
+    """(d): SIGKILL an executor between the stages of DAEMON_KILL, on the
+    shared tier: the answer is bit-equal to a clean run on the same two
+    executors and no task waits for the executor lease."""
+    from ballista_tpu_torch.daemons import kill_between_stages, straggler_seed
+
+    sql, _ = _serving_sql(DAEMON_KILL)
+    ctx = client()
+    plan = ctx.sql(sql).logical_plan()
+    before = {t["job"] for t in cluster.tasks()}
+    clean = ctx.collect(plan)
+    _compare(f"{DAEMON_KILL} (daemons, before the kill)", clean, answers[DAEMON_KILL])
+    coords = sorted({(t["stage"], t["partition"]) for t in cluster.tasks()
+                     if t["job"] not in before})
+    final = max(s for s, _p in coords)
+    slowed = max(c for c in coords if c[0] < final)
+    seed = straggler_seed(coords, slowed, DAEMON_SLOW_RATE)
+    chaos = client({"ballista.chaos.rate": str(DAEMON_SLOW_RATE),
+                    "ballista.chaos.sites": "task.slow",
+                    "ballista.chaos.slow_ms": str(DAEMON_SLOW_MS),
+                    "ballista.chaos.seed": str(seed)})
+    t0 = time.time()
+    job = chaos.submit(plan)
+    kill = kill_between_stages(cluster, job, slowed, timeout=120)
+    got = chaos._collect_results(job, plan.schema(), timeout=300)
+    answered = time.time()
+    chaos.close()
+    ctx.close()
+    if not got.equals(clean):
+        fail(f"{DAEMON_KILL}: the answer after the SIGKILL differs from the clean run")
+    if kill["victim"].alive():
+        fail("the killed executor is still alive")
+    tasks = [t for t in cluster.tasks() if t["job"] == job]
+    victim, survivor = kill["victim"].executor_id, kill["survivor"].executor_id
+    later = {t["executor"] for t in tasks if t["stage"] == final}
+    # a task of the dead process goes back to pending only when its lease
+    # lapses: a reset shows as a later attempt
+    reset = [t for t in tasks if t["attempt"] > 0]
+    lease_wait_s = (answered - kill["killed_at"]) if reset else 0.0
+    if later != {survivor}:
+        fail(f"{DAEMON_KILL}: the final stage ran on {later}, not on the survivor {survivor}")
+    return {"query": DAEMON_KILL, "slowed_task": list(slowed), "chaos_seed": seed,
+            "victim_pid": kill["victim"].pid, "victim_map_outputs": len(kill["victim_outputs"]),
+            "kill_after_submit_s": kill["killed_at"] - t0,
+            "kill_to_answer_s": answered - kill["killed_at"],
+            "lease_wait_s": lease_wait_s, "reset_tasks": len(reset),
+            "executor_lease_s": EXECUTOR_LEASE_S, "bit_equal": True,
+            "survivor": survivor, "victim": victim}
+
+
+def phase_daemons(data_dir: str, answers: dict, dist: dict, device: str = ""):
+    """Phase 13 (see the module docstring), over phase 3's data. `answers`
+    maps each query of DAEMON_QUERIES to the "cpu" backend's answer, `dist`
+    is phase 10's record. `device` is the executors' --device ("" = the
+    card; "cpu" only for a rehearsal on a machine without one, which skips
+    the card's checks). Returns its record and the kernels' launch counts
+    in the executor processes."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.daemons import DaemonCluster
+
+    on_card = device != "cpu"
+    t_phase = time.perf_counter()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_daemons_"))
+    # (c): the package copied without build/, so both executors find no
+    # kernel library and build them at once
+    tree = work / "tree"
+    shutil.copytree(ROOT / "ballista_tpu_torch", tree / "ballista_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    # one task slot per executor: push dispatch fills the first subscriber's
+    # slots before it offers the next, and two slots take all of a stage's
+    # two scan partitions
+    cluster = DaemonCluster(str(work / "cluster"), root=str(tree), device=device,
+                            concurrent_tasks=1, prewarm=True, timeout=300)
+    settings = {**BASE, **DIST_SETTINGS,
+                "ballista.tpu.layout_cache_dir": str(work / "layouts"),
+                "ballista.tpu.cost_model_dir": str(work / "costs")}
+    client_device = torch.device("cuda") if on_card else torch.device("cpu")
+    result = {}
+
+    def client(extra=None):
+        ctx = BallistaContext(*cluster.scheduler_addr, settings={**settings, **(extra or {})},
+                              device=client_device)
+        register_all(ctx, data_dir)
+        return ctx
+
+    try:
+        t0 = time.perf_counter()
+        first = cluster.start().executors
+        result["start_s"] = time.perf_counter() - t0
+        result["executors_up_s"] = [ex.up_at - ex.started for ex in first]
+        for ex in first:
+            if ex.backend != "cuda" or (on_card and not ex.device.startswith("cuda")):
+                fail(f"{ex.name}: started on backend {ex.backend}, device {ex.device}")
+        t0 = time.perf_counter()
+        result["queries"] = _daemon_queries(client, answers, dist)
+        result["queries_s"] = time.perf_counter() - t0
+        # (b): each executor process holds memory on the card
+        apps = _compute_apps() if on_card else {}
+        result["compute_apps_mib"] = {str(ex.pid): apps.get(ex.pid) for ex in first}
+        result["all_compute_apps_mib"] = {str(k): v for k, v in apps.items()}
+        t0 = time.perf_counter()
+        records = [cluster.stop_executor(ex) for ex in first]
+        result["stop_s"] = time.perf_counter() - t0
+        launches = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
+        for r in records:
+            for k, v in r["launch_counts"].items():
+                launches[k] += v
+        result["executors"] = [{
+            "pid": r["pid"], "launch_counts": r["launch_counts"],
+            "kernel_libraries": r["kernel_libraries"],
+            "routes": r["routing_stats"]["routes"], "reasons": r["routing_stats"]["reasons"],
+            "shuffle_tier": r["shuffle_tier_stats"], "exchange": r["exchange_stats"],
+            "max_memory_reserved_mib": r["max_memory_reserved"] / 2**20} for r in records]
+        for r in records:
+            if r["routing_stats"]["routes"].get("pallas_sorted", 0) < 1:
+                fail(f"executor {r['pid']} never took the pallas_sorted route")
+        q18_parts = len(list((pathlib.Path(data_dir) / "lineitem").glob("*.parquet")))
+        q18_runs = 1 + DAEMON_WARM
+        if on_card:
+            if launches["sorted_grouped_sum"] < q18_parts * q18_runs:
+                fail(f"the executors launched sorted_grouped_sum {launches} times, "
+                     f"under {q18_parts} per run of q18-inner")
+            for r in records:
+                if set(r["kernel_libraries"]) != {"sorted_grouped_sum", "grouped_aggregate"}:
+                    fail(f"executor {r['pid']} loaded {sorted(r['kernel_libraries'])}")
+            listed = [mib for mib in result["compute_apps_mib"].values() if mib]
+            if any(ex.pid in apps for ex in first):
+                if len(listed) != len(first):
+                    fail(f"nvidia-smi lists {result['compute_apps_mib']} for the executors")
+            elif not all(r["max_memory_reserved"] > 0 for r in records):
+                # nvidia-smi in another pid namespace lists other pids: the
+                # executors' own allocators must then show the memory
+                fail(f"no executor pid in nvidia-smi's {apps}, and an executor "
+                     "reserved no device memory")
+        # (d): two new executors (the build directory now warm); one dies
+        t0 = time.perf_counter()
+        second = cluster.start_executors()
+        result["restart_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["kill"] = _kill_part(cluster, client, answers)
+        result["kill"]["seconds"] = time.perf_counter() - t0
+        # (e): SIGINT the survivor and the scheduler
+        survivor = [ex for ex in second if ex.alive()]
+        (record,) = cluster.stop()
+        if cluster.scheduler.proc.returncode != 0:
+            fail(f"the scheduler exited with {cluster.scheduler.proc.returncode}")
+        if record["shuffle_tier_stats"].get("storage_fetch", 0) < 1:
+            fail(f"the survivor read no piece from the shared tier: {record}")
+        result["kill"]["survivor_shuffle_tier"] = record["shuffle_tier_stats"]
+        result["kill"]["survivor_pid"] = survivor[0].pid
+        for k, v in record["launch_counts"].items():
+            launches[k] += v
+    finally:
+        left = [d.name for d in [cluster.scheduler, *cluster.executors] if d and d.alive()]
+        cluster.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if left:
+        fail(f"daemons left running after phase 13: {left}")
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 (daemons): {result['seconds']:.1f} s")
+    return result, launches
+
+
 def _local_record(times: dict) -> dict:
     """A local-engine query record of phases 3, 6 and 7, for phase 10."""
     return {"declines": _host_declines(times, times.get("join_paths", {})),
@@ -2733,6 +2992,8 @@ def main() -> int:
                                                                     dist_times)
         serving_times, serving_launches = phase_serving(
             data_dir, {name: local_answers[name] for name in SERVING_MIX})
+        daemon_times, daemon_launches = phase_daemons(
+            data_dir, {name: local_answers[name] for name in DAEMON_QUERIES}, dist_times)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -2744,7 +3005,8 @@ def main() -> int:
                                  "join_shapes": shape_launches[k["name"]],
                                  "distributed": dist_launches[k["name"]],
                                  "shared_mesh": shared_mesh_launches[k["name"]],
-                                 "serving": serving_launches[k["name"]]}
+                                 "serving": serving_launches[k["name"]],
+                                 "daemons": daemon_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
@@ -2752,6 +3014,7 @@ def main() -> int:
     print(json.dumps({"distributed": dist_times}))
     print(json.dumps({"shared_mesh": shared_mesh_times}))
     print(json.dumps({"serving": serving_times}))
+    print(json.dumps({"daemons": daemon_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -16,6 +16,7 @@ the sources in a temporary directory: no nvcc, no card. The tests marked
 import json
 import pathlib
 import shutil
+import types
 
 import pyarrow as pa
 import pytest
@@ -143,6 +144,41 @@ def test_changed_input_rebuilds(fake_build, monkeypatch, change):
         # the earlier library stays; nothing overwrote it
         assert pathlib.Path(first[name]["library"]).exists()
     assert len(ck.manifest()) == 4
+
+
+class _LoadedStandIn:
+    """What ctypes.CDLL returns for a stand-in library: the one entry
+    _load_locked calls."""
+
+    def bt_sorted_grouped_sum_tile_rows(self):
+        return ck.SORTED_TILE_ROWS
+
+
+def test_prewarm_builds_missing_libraries_together_and_counts_once(fake_build, monkeypatch):
+    """prewarm on a card (the loads stood in): over an empty build directory
+    every library compiles in ONE nvcc batch, and over a warm one a new
+    process counts one compile_hit_disk and one compile_prewarmed per
+    library, as chip_smoke.py's phase 9 requires; loaded_libraries()
+    reports the compile seconds, or None for a library found on disk."""
+    monkeypatch.setattr(ck, "ctypes", types.SimpleNamespace(CDLL=lambda path: _LoadedStandIn()))
+    monkeypatch.setattr(ck, "_bind", lambda name, lib: None)
+    monkeypatch.setattr(ck, "_compiled_s", {})
+    config = BallistaConfig({"ballista.tpu.prewarm": "true"})
+    assert ck.prewarm(config, device="cuda") == 2
+    assert fake_build["jobs"] == [NAMES]
+    assert runtime.serving_stats(reset=True) == {"kernel_built": 2, "compile_prewarmed": 2}
+    assert sorted(ck.loaded_libraries()) == NAMES
+    assert all(s is not None for s in ck.loaded_libraries().values())
+    # a second prewarm finds both loaded
+    assert ck.prewarm(config, device="cuda") == 0
+    assert runtime.serving_stats(reset=True) == {"compile_hit_memory": 2}
+    # a new process over the warm directory
+    monkeypatch.setattr(ck, "_libs", {})
+    monkeypatch.setattr(ck, "_compiled_s", {})
+    assert ck.prewarm(config, device="cuda") == 2
+    assert fake_build["jobs"] == [NAMES]
+    assert runtime.serving_stats(reset=True) == {"compile_hit_disk": 2, "compile_prewarmed": 2}
+    assert ck.loaded_libraries() == {name: None for name in NAMES}
 
 
 def test_failed_build_raises_and_prewarm_raises(fake_build):
