@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import signal
 import tempfile
 import time
 
@@ -26,15 +27,11 @@ from ballista_tpu_torch.scheduler.server import SchedulerServer, serve
 
 
 # the executor daemon's spec: the shared one with the port's backends (the
-# device stages default to "cuda"), the torch device they run on, and
-# ballista.tpu.prewarm (without it a library on no route never loads)
+# device stages default to "cuda") and the torch device they run on
 _SPEC = [
     ("backend", "cuda", "kernel backend: cuda | cpu") if name == "backend" else (name, default, help_)
     for name, default, help_ in EXECUTOR_SPEC
-] + [
-    ("device", "", "torch device of the device stages ('' = the GPU; cpu)"),
-    ("prewarm", False, "load every kernel library before serving"),
-]
+] + [("device", "", "torch device of the device stages ('' = the GPU; cpu)")]
 
 
 def stop_record(executor: BallistaExecutor, backend: str) -> dict:
@@ -60,6 +57,10 @@ def stop_record(executor: BallistaExecutor, backend: str) -> dict:
 
 
 def main() -> None:
+    # SIGINT is the clean stop. A process started in the background of
+    # a shell (or under nohup) inherits SIGINT ignored, and Python keeps
+    # it so: SIGINT then did nothing at all
+    signal.signal(signal.SIGINT, signal.default_int_handler)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
@@ -98,17 +99,22 @@ def main() -> None:
                 # the daemon's GC sweep owns this root's TTL
                 "ballista.shuffle.tier": cfg["shuffle_tier"],
                 "ballista.shuffle.dir": cfg["shuffle_dir"],
-                "ballista.tpu.prewarm": str(cfg["prewarm"]).lower(),
+                # on a card every kernel library loads (or builds) before
+                # the executor serves, so no task pays for a build and a
+                # library that does not build fails the start (a no-op on
+                # the CPU and on the "cpu" backend)
+                "ballista.tpu.prewarm": "true",
             }
         ),
     )
     executor.start()
-    log.info(
-        "Ballista executor up (id=%s, flight=%s:%s, backend=%s, device=%s)",
-        executor.id, cfg["external_host"], executor.port, cfg["backend"],
-        executor.device,
-    )
     try:
+        # inside the try: a SIGINT sent on seeing this line stops cleanly
+        log.info(
+            "Ballista executor up (id=%s, flight=%s:%s, backend=%s, device=%s)",
+            executor.id, cfg["external_host"], executor.port, cfg["backend"],
+            executor.device,
+        )
         # short sleeps: a SIGINT that the kernel delivers to another of this
         # process's threads (grpc's, Arrow Flight's) only sets Python's
         # flag, and the main thread raises KeyboardInterrupt when its sleep

@@ -6,6 +6,7 @@
 from __future__ import annotations
 
 import logging
+import signal
 import time
 
 from ballista_tpu_torch.daemon_config import SCHEDULER_SPEC, load_config
@@ -14,6 +15,10 @@ from ballista_tpu_torch.scheduler.server import SchedulerServer, serve
 
 
 def main() -> None:
+    # SIGINT is the clean stop. A process started in the background of
+    # a shell (or under nohup) inherits SIGINT ignored, and Python keeps
+    # it so: SIGINT then did nothing at all
+    signal.signal(signal.SIGINT, signal.default_int_handler)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s %(message)s",
@@ -41,11 +46,12 @@ def main() -> None:
         ),
     )
     server = serve(impl, cfg["bind_host"], cfg["port"])
-    logging.getLogger("ballista.scheduler").info(
-        "Ballista-TPU scheduler up (backend=%s, namespace=%s, port=%s)",
-        backend, cfg["namespace"], cfg["port"],
-    )
     try:
+        # inside the try: a SIGINT sent on seeing this line stops cleanly
+        logging.getLogger("ballista.scheduler").info(
+            "Ballista-TPU scheduler up (backend=%s, namespace=%s, port=%s)",
+            backend, cfg["namespace"], cfg["port"],
+        )
         # short sleeps: a SIGINT that the kernel delivers to another of this
         # process's threads (grpc's, Arrow Flight's) only sets Python's
         # flag, and the main thread raises KeyboardInterrupt when its sleep

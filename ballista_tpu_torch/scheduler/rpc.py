@@ -139,11 +139,14 @@ class SchedulerGrpcClient:
             ep = (ep[0], int(ep[1]))
             if ep not in self.endpoints:
                 self.endpoints.append(ep)
-        # endpoint index -> channel, and (index, method) -> stub;
-        # replaced together when a channel that never connected is dropped
-        # (_drop_unconnected)
+        # endpoint index -> channel, and (index, method) -> (stub, its
+        # channel); replaced together when a channel that does not answer
+        # is dropped (_note_unavailable)
         self._chan_mu = make_lock("scheduler.rpc._chan_mu")
         self._channels: dict = {}  # guarded-by: self._chan_mu
+        # endpoint index -> whether its channel's last call was answered
+        # (False for a new channel: it has never connected)
+        self._answered: dict = {}  # guarded-by: self._chan_mu
         # a caller's channel is the caller's to close: it is never dropped
         self._given = channel
         if channel is not None:
@@ -177,14 +180,17 @@ class SchedulerGrpcClient:
                 f"{h}:{p}", options=GRPC_MESSAGE_OPTIONS
             )
             self._channels[idx] = ch
+            self._answered[idx] = False
         return ch
 
     def _stub(self, name: str, stream: bool = False):
-        idx = self._active
+        return self._stub_and_channel(self._active, name, stream)[0]
+
+    def _stub_and_channel(self, idx: int, name: str, stream: bool = False):
         key = (idx, name)
         with self._chan_mu:
-            stub = self._stub_cache.get(key)
-            if stub is None:
+            hit = self._stub_cache.get(key)
+            if hit is None:
                 ch = self._channel_locked(idx)
                 factory = ch.unary_stream if stream else ch.unary_unary
                 resp_cls = (_STREAM_METHODS if stream else _METHODS)[name][1]
@@ -193,26 +199,35 @@ class SchedulerGrpcClient:
                     request_serializer=lambda m: m.SerializeToString(),
                     response_deserializer=resp_cls.FromString,
                 )
-                self._stub_cache[key] = stub
-            return stub
+                hit = self._stub_cache[key] = (stub, ch)
+            return hit
 
-    def _drop_unconnected(self, idx: int, detail: str) -> None:
-        """Close endpoint `idx`'s channel after a call failed to CONNECT
-        to it, so the next call opens a fresh channel and connects at once.
-        A channel that failed to connect waits out grpc's own reconnect
-        backoff, which the reconnect options above do not bound: a process
-        started before its scheduler (docker-compose starts them together)
-        went on failing for 3-10 s after the scheduler was up. The channel
-        holds no live call (it never connected), so closing it loses
-        nothing; a call that did connect and then failed keeps its
-        channel."""
-        if "failed to connect" not in detail:
-            return
+    def _note_answered(self, idx: int, ch: grpc.Channel) -> None:
         with self._chan_mu:
-            ch = self._channels.get(idx)
-            if ch is None or ch is self._given:
+            if self._channels.get(idx) is ch:
+                self._answered[idx] = True
+
+    def _note_unavailable(self, idx: int, ch: grpc.Channel) -> None:
+        """A call on endpoint `idx`'s channel `ch` failed as UNAVAILABLE.
+        When the channel's call before this one was not answered either (or
+        it never connected), close it, so the next call opens a fresh
+        channel and connects at once. A channel that cannot connect waits
+        out grpc's own reconnect backoff, which the reconnect options above
+        do not bound: a process started before its scheduler
+        (docker-compose starts them together), or that outlived it, went on
+        failing for 3-10 s after the scheduler was up. A channel that
+        cannot connect holds no live call, so closing it loses nothing; one
+        UNAVAILABLE over a channel that answered the call before it (a
+        replica's ownership redirect, a server that just went away) keeps
+        it."""
+        with self._chan_mu:
+            if self._channels.get(idx) is not ch or ch is self._given:
+                return
+            if self._answered[idx]:
+                self._answered[idx] = False
                 return
             del self._channels[idx]
+            del self._answered[idx]
             for key in [k for k in self._stub_cache if k[0] == idx]:
                 del self._stub_cache[key]
         ch.close()
@@ -272,17 +287,22 @@ class SchedulerGrpcClient:
         attempts = self.retries + 1
         for i in range(attempts):
             idx = self._active
+            stub, ch = self._stub_and_channel(idx, name)
             try:
                 if self.chaos is not None:
                     self.chaos.maybe_fail("rpc.call", self._chaos_key(name))
-                return self._stub(name)(params)
+                out = stub(params)
+                self._note_answered(idx, ch)
+                return out
             except ChaosInjected as e:
                 transient, detail, err = True, str(e), e
             except ValueError as e:
-                # another thread closed this channel after a failed connect
-                # (_drop_unconnected) between taking its stub and calling
-                if "closed channel" not in str(e):
-                    raise
+                # grpc raises ValueError on a closed channel: another
+                # thread dropped this one (_note_unavailable) after this
+                # call took its stub
+                with self._chan_mu:
+                    if self._channels.get(idx) is ch:
+                        raise
                 transient, detail, err = True, str(e), e
             except grpc.RpcError as e:
                 code = e.code() if hasattr(e, "code") else None
@@ -302,7 +322,9 @@ class SchedulerGrpcClient:
                 )
                 err = e
                 if code == grpc.StatusCode.UNAVAILABLE:
-                    self._drop_unconnected(idx, detail or "")
+                    self._note_unavailable(idx, ch)
+                elif not transient:
+                    self._note_answered(idx, ch)
             if not transient or i + 1 >= attempts:
                 raise RpcError(f"{name} failed: {detail}") from err
             record_recovery("rpc_retry")

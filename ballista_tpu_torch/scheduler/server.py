@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 import queue
 import random
+import socket
 import string
 import threading
 import time
@@ -1064,13 +1065,20 @@ class SchedulerServer:
             return 0
         with self._push_mu:
             subs = list(self._subscribers.values())
+        # one task to each subscriber in turn, until none takes another:
+        # filling the first subscriber's slots before offering the next sent
+        # every task of a stage narrower than its slots to one executor
+        # while the others idled
         pushed = 0
-        for sub in subs:
-            pushed += self._pump_one_locked(sub)
+        while subs:
+            took = [self._pump_one_locked(sub, limit=1) for sub in subs]
+            pushed += sum(took)
+            subs = [sub for sub, n in zip(subs, took) if n]
         return pushed
 
-    def _pump_one_locked(self, sub: _PushSubscriber) -> int:
-        """Pump ONE subscriber (caller holds the global KV lock). The
+    def _pump_one_locked(self, sub: _PushSubscriber, limit: Optional[int] = None) -> int:
+        """Pump ONE subscriber (caller holds the global KV lock), at most
+        `limit` tasks (None: until its credit or the work runs out). The
         per-subscriber stream tick calls this for its own stream only —
         pumping every subscriber from every tick would be O(N^2) idle KV
         traffic at 4Hz on the scheduler's one lock."""
@@ -1099,7 +1107,8 @@ class SchedulerServer:
             ):
                 sub.outstanding.discard(key)
         pushed = 0
-        while len(sub.outstanding) < sub.slots and not sub.closed.is_set():
+        while (len(sub.outstanding) < sub.slots and not sub.closed.is_set()
+               and (limit is None or pushed < limit)):
             speculative = False
             try:
                 assigned = self.state.assign_next_schedulable_task(
@@ -1218,9 +1227,49 @@ class SchedulerServer:
                         continue
                     yield td
             finally:
+                # not closed here: the executor cancelled its call or its
+                # connection went away
+                departed = not sub.closed.is_set() and not self.crashed
                 self._close_subscriber(sub)
+                if departed:
+                    threading.Thread(target=self._reap_if_dead, args=(sub.executor_id,),
+                                     daemon=True).start()
 
         return stream()
+
+    def _reap_if_dead(self, executor_id: str) -> None:
+        """An executor's push stream ended from its side. When its Flight
+        port then refuses connections, its process is gone (a SIGKILL
+        closes every socket it held): forget it and reset its running
+        tasks now. Without this a task pushed to a process that died
+        waited out EXECUTOR_LEASE_SECS (60 s) before it ran again. A port
+        that accepts (a live executor whose stream broke), or a host that
+        does not answer, leaves the executor to its lease."""
+        try:
+            with self.state.kv.lock():
+                meta = self.state.get_executor_metadata(executor_id)
+            if meta is None or not meta.port:
+                return
+            try:
+                socket.create_connection((meta.host, meta.port), timeout=1.0).close()
+                return
+            except ConnectionRefusedError:
+                pass
+            except OSError:
+                return
+            with self.state.kv.lock():
+                with self._push_mu:
+                    back = executor_id in self._subscribers
+                if back or self.crashed:
+                    return
+                self.state.remove_executor(executor_id)
+                n = self.state.reset_lost_tasks()
+                log.warning("executor %s is gone (its stream ended and its port %s:%s "
+                            "refuses connections): re-scheduled %d tasks",
+                            executor_id, meta.host, meta.port, n)
+                self._pump_pushes()
+        except Exception:
+            log.warning("checking departed executor %s failed", executor_id, exc_info=True)
 
     def PollWork(self, request: pb.PollWorkParams, context=None) -> pb.PollWorkResult:
         import time as _time

@@ -1064,6 +1064,11 @@ class SchedulerState:
             lease_seconds=EXECUTOR_LEASE_SECS,
         )
 
+    def remove_executor(self, executor_id: str) -> None:
+        """Forget an executor known to be gone: its registration goes now,
+        not when its lease lapses, so reset_lost_tasks treats it as dead."""
+        self.kv.delete(self._key("executors", executor_id))
+
     def get_executors_metadata(self) -> List[pb.ExecutorMetadata]:
         out = []
         for _k, v in self.kv.get_prefix(self._key("executors")):

@@ -193,14 +193,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 13. daemons (runs after phase 12, over phase 3's data): the deployment of
    deployment/docker-compose.yaml on one card, through the package's own
-   daemons as processes (ballista_tpu_torch/daemons.py): `python -m
-   ballista_tpu_torch.scheduler --config-backend sqlite` and two `python -m
-   ballista_tpu_torch.executor --shuffle-tier shared --prewarm
-   --concurrent-tasks 1` (the card is their default device), started at
-   once from a copy of the package with no build/ directory, and a
-   BallistaContext in this process. (c) Both executors build the kernel
-   libraries at once and both load both; prints each process's seconds to
-   its start line and its compile seconds. (a) DAEMON_QUERIES run cold and
+   daemons as processes (started by tests/torch_daemon_cluster.py):
+   `python -m ballista_tpu_torch.scheduler --config-backend sqlite` and two
+   `python -m ballista_tpu_torch.executor --shuffle-tier shared` (default
+   settings: the card is their device, four task slots, every kernel
+   library loaded before they serve), started at once from a copy of the
+   package with no build/ directory, and a BallistaContext in this process.
+   (c) Both executors build the kernel libraries at once and both load
+   both; prints each process's seconds to its start line and its compile
+   seconds. (a) DAEMON_QUERIES run cold and
    twice warm, each held to the "cpu" answer of phases 3, 6 and 7 under
    phase 3's tolerance, beside phase 10's ms. (b) nvidia-smi
    --query-compute-apps must list both executor pids with memory (where it
@@ -213,10 +214,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    other executor is SIGKILLed once its map output is on the shared tier
    and it holds no task: the answer must be bit-equal to the clean run, the
    final stage must run on the survivor, and the seconds from the kill to
-   the answer (and any wait for the 60 s executor lease) are printed. (e)
-   SIGINT stops the survivor (which must have read pieces from the shared
-   tier) and the scheduler; every daemon still alive is killed in a
-   finally, which then fails the run. Printed as one {"daemons": ...} line;
+   the answer (and any wait for the 60 s executor lease) are printed;
+   SIGINT stops the survivor, which must have read pieces from the shared
+   tier. Two more executors start; DAEMON_KILL runs with the same task
+   slowed, and the executor that runs it is SIGKILLed while it does: the
+   scheduler must forget the dead process and put the task back, and the
+   answer must be bit-equal and come within half the lease; the seconds
+   from the kill to each are printed. (e) SIGINT stops the last survivor
+   and the scheduler; every daemon still alive is killed in a finally,
+   which then fails the run. Printed as one {"daemons": ...} line;
    the executors' launches count in the kernels line.
 
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
@@ -2762,34 +2768,37 @@ def _daemon_queries(client, answers: dict, dist: dict) -> dict:
     return out
 
 
-def _kill_part(cluster, client, answers: dict) -> dict:
-    """(d): SIGKILL an executor between the stages of DAEMON_KILL, on the
-    shared tier: the answer is bit-equal to a clean run on the same two
-    executors and no task waits for the executor lease."""
-    from ballista_tpu_torch.daemons import kill_between_stages, straggler_seed
+def _kill_part(cluster, client, answers: dict) -> tuple:
+    """(d), the first kill: SIGKILL an executor between the stages of
+    DAEMON_KILL, on the shared tier: the answer is bit-equal to a clean run
+    on the same two executors and no task waits for the executor lease.
+    Returns its record and (plan, clean answer, chaos settings, slowed
+    task) for the second kill."""
+    from torch_daemon_cluster import kill_between_stages, straggler_seed
 
     sql, _ = _serving_sql(DAEMON_KILL)
     ctx = client()
     plan = ctx.sql(sql).logical_plan()
     before = {t["job"] for t in cluster.tasks()}
     clean = ctx.collect(plan)
+    ctx.close()
     _compare(f"{DAEMON_KILL} (daemons, before the kill)", clean, answers[DAEMON_KILL])
     coords = sorted({(t["stage"], t["partition"]) for t in cluster.tasks()
                      if t["job"] not in before})
     final = max(s for s, _p in coords)
     slowed = max(c for c in coords if c[0] < final)
     seed = straggler_seed(coords, slowed, DAEMON_SLOW_RATE)
-    chaos = client({"ballista.chaos.rate": str(DAEMON_SLOW_RATE),
-                    "ballista.chaos.sites": "task.slow",
-                    "ballista.chaos.slow_ms": str(DAEMON_SLOW_MS),
-                    "ballista.chaos.seed": str(seed)})
+    slow = {"ballista.chaos.rate": str(DAEMON_SLOW_RATE),
+            "ballista.chaos.sites": "task.slow",
+            "ballista.chaos.slow_ms": str(DAEMON_SLOW_MS),
+            "ballista.chaos.seed": str(seed)}
+    chaos = client(slow)
     t0 = time.time()
     job = chaos.submit(plan)
     kill = kill_between_stages(cluster, job, slowed, timeout=120)
     got = chaos._collect_results(job, plan.schema(), timeout=300)
     answered = time.time()
     chaos.close()
-    ctx.close()
     if not got.equals(clean):
         fail(f"{DAEMON_KILL}: the answer after the SIGKILL differs from the clean run")
     if kill["victim"].alive():
@@ -2797,36 +2806,64 @@ def _kill_part(cluster, client, answers: dict) -> dict:
     tasks = [t for t in cluster.tasks() if t["job"] == job]
     victim, survivor = kill["victim"].executor_id, kill["survivor"].executor_id
     later = {t["executor"] for t in tasks if t["stage"] == final}
-    # a task of the dead process goes back to pending only when its lease
-    # lapses: a reset shows as a later attempt
+    # a task put back after the kill shows as a later attempt
     reset = [t for t in tasks if t["attempt"] > 0]
     lease_wait_s = (answered - kill["killed_at"]) if reset else 0.0
     if later != {survivor}:
         fail(f"{DAEMON_KILL}: the final stage ran on {later}, not on the survivor {survivor}")
-    return {"query": DAEMON_KILL, "slowed_task": list(slowed), "chaos_seed": seed,
-            "victim_pid": kill["victim"].pid, "victim_map_outputs": len(kill["victim_outputs"]),
+    record = {"query": DAEMON_KILL, "slowed_task": list(slowed), "chaos_seed": seed,
+              "victim_pid": kill["victim"].pid, "victim_map_outputs": len(kill["victim_outputs"]),
+              "kill_after_submit_s": kill["killed_at"] - t0,
+              "kill_to_answer_s": answered - kill["killed_at"],
+              "lease_wait_s": lease_wait_s, "reset_tasks": len(reset),
+              "executor_lease_s": EXECUTOR_LEASE_S, "bit_equal": True,
+              "survivor": survivor, "victim": victim}
+    return record, (plan, clean, slow, slowed)
+
+
+def _kill_running_part(cluster, client, run: tuple) -> dict:
+    """(d), the second kill: SIGKILL the executor that runs the slowed task
+    of DAEMON_KILL while it runs it. The scheduler must forget the dead
+    process and put the task back without waiting for the executor lease,
+    and the answer must be bit-equal to the clean run."""
+    from torch_daemon_cluster import kill_while_running
+
+    plan, clean, slow, slowed = run
+    chaos = client(slow)
+    t0 = time.time()
+    job = chaos.submit(plan)
+    kill = kill_while_running(cluster, job, slowed, timeout=EXECUTOR_LEASE_S / 2)
+    got = chaos._collect_results(job, plan.schema(), timeout=300)
+    answered = time.time()
+    chaos.close()
+    if not got.equals(clean):
+        fail(f"{DAEMON_KILL}: the answer after the SIGKILL of a running task differs")
+    kill_to_answer = answered - kill["killed_at"]
+    if kill_to_answer >= EXECUTOR_LEASE_S / 2:
+        fail(f"{DAEMON_KILL}: the answer came {kill_to_answer:.1f} s after the kill")
+    tasks = [t for t in cluster.tasks() if t["job"] == job]
+    return {"query": DAEMON_KILL, "slowed_task": list(slowed), "victim_pid": kill["victim"].pid,
             "kill_after_submit_s": kill["killed_at"] - t0,
-            "kill_to_answer_s": answered - kill["killed_at"],
-            "lease_wait_s": lease_wait_s, "reset_tasks": len(reset),
-            "executor_lease_s": EXECUTOR_LEASE_S, "bit_equal": True,
-            "survivor": survivor, "victim": victim}
+            "kill_to_forget_s": kill["kill_to_forget_s"],
+            "kill_to_reset_s": kill["kill_to_reset_s"], "kill_to_answer_s": kill_to_answer,
+            "reset_tasks": len([t for t in tasks if t["attempt"] > 0]),
+            "executor_lease_s": EXECUTOR_LEASE_S, "bit_equal": True}
 
 
-def phase_daemons(data_dir: str, answers: dict, dist: dict, device: str = ""):
+def phase_daemons(data_dir: str, answers: dict, dist: dict):
     """Phase 13 (see the module docstring), over phase 3's data. `answers`
     maps each query of DAEMON_QUERIES to the "cpu" backend's answer, `dist`
-    is phase 10's record. `device` is the executors' --device ("" = the
-    card; "cpu" only for a rehearsal on a machine without one, which skips
-    the card's checks). Returns its record and the kernels' launch counts
+    is phase 10's record. Returns its record and the kernels' launch counts
     in the executor processes."""
     import torch
 
     from benchmarks.tpch.datagen import register_all
 
     from ballista_tpu_torch.client import BallistaContext
-    from ballista_tpu_torch.daemons import DaemonCluster
 
-    on_card = device != "cpu"
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_daemon_cluster import DaemonCluster
+
     t_phase = time.perf_counter()
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_daemons_"))
     # (c): the package copied without build/, so both executors find no
@@ -2834,22 +2871,24 @@ def phase_daemons(data_dir: str, answers: dict, dist: dict, device: str = ""):
     tree = work / "tree"
     shutil.copytree(ROOT / "ballista_tpu_torch", tree / "ballista_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
-    # one task slot per executor: push dispatch fills the first subscriber's
-    # slots before it offers the next, and two slots take all of a stage's
-    # two scan partitions
-    cluster = DaemonCluster(str(work / "cluster"), root=str(tree), device=device,
-                            concurrent_tasks=1, prewarm=True, timeout=300)
+    cluster = DaemonCluster(str(work / "cluster"), root=str(tree), timeout=300)
     settings = {**BASE, **DIST_SETTINGS,
                 "ballista.tpu.layout_cache_dir": str(work / "layouts"),
                 "ballista.tpu.cost_model_dir": str(work / "costs")}
-    client_device = torch.device("cuda") if on_card else torch.device("cpu")
     result = {}
+    launches = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
 
     def client(extra=None):
         ctx = BallistaContext(*cluster.scheduler_addr, settings={**settings, **(extra or {})},
-                              device=client_device)
+                              device=torch.device("cuda"))
         register_all(ctx, data_dir)
         return ctx
+
+    def stop(ex) -> dict:
+        record = cluster.stop_executor(ex)
+        for k, v in record["launch_counts"].items():
+            launches[k] += v
+        return record
 
     try:
         t0 = time.perf_counter()
@@ -2857,22 +2896,18 @@ def phase_daemons(data_dir: str, answers: dict, dist: dict, device: str = ""):
         result["start_s"] = time.perf_counter() - t0
         result["executors_up_s"] = [ex.up_at - ex.started for ex in first]
         for ex in first:
-            if ex.backend != "cuda" or (on_card and not ex.device.startswith("cuda")):
+            if ex.backend != "cuda" or not ex.device.startswith("cuda"):
                 fail(f"{ex.name}: started on backend {ex.backend}, device {ex.device}")
         t0 = time.perf_counter()
         result["queries"] = _daemon_queries(client, answers, dist)
         result["queries_s"] = time.perf_counter() - t0
         # (b): each executor process holds memory on the card
-        apps = _compute_apps() if on_card else {}
+        apps = _compute_apps()
         result["compute_apps_mib"] = {str(ex.pid): apps.get(ex.pid) for ex in first}
         result["all_compute_apps_mib"] = {str(k): v for k, v in apps.items()}
         t0 = time.perf_counter()
-        records = [cluster.stop_executor(ex) for ex in first]
+        records = [stop(ex) for ex in first]
         result["stop_s"] = time.perf_counter() - t0
-        launches = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
-        for r in records:
-            for k, v in r["launch_counts"].items():
-                launches[k] += v
         result["executors"] = [{
             "pid": r["pid"], "launch_counts": r["launch_counts"],
             "kernel_libraries": r["kernel_libraries"],
@@ -2884,40 +2919,47 @@ def phase_daemons(data_dir: str, answers: dict, dist: dict, device: str = ""):
                 fail(f"executor {r['pid']} never took the pallas_sorted route")
         q18_parts = len(list((pathlib.Path(data_dir) / "lineitem").glob("*.parquet")))
         q18_runs = 1 + DAEMON_WARM
-        if on_card:
-            if launches["sorted_grouped_sum"] < q18_parts * q18_runs:
-                fail(f"the executors launched sorted_grouped_sum {launches} times, "
-                     f"under {q18_parts} per run of q18-inner")
-            for r in records:
-                if set(r["kernel_libraries"]) != {"sorted_grouped_sum", "grouped_aggregate"}:
-                    fail(f"executor {r['pid']} loaded {sorted(r['kernel_libraries'])}")
-            listed = [mib for mib in result["compute_apps_mib"].values() if mib]
-            if any(ex.pid in apps for ex in first):
-                if len(listed) != len(first):
-                    fail(f"nvidia-smi lists {result['compute_apps_mib']} for the executors")
-            elif not all(r["max_memory_reserved"] > 0 for r in records):
-                # nvidia-smi in another pid namespace lists other pids: the
-                # executors' own allocators must then show the memory
-                fail(f"no executor pid in nvidia-smi's {apps}, and an executor "
-                     "reserved no device memory")
+        if launches["sorted_grouped_sum"] < q18_parts * q18_runs:
+            fail(f"the executors launched sorted_grouped_sum {launches} times, "
+                 f"under {q18_parts} per run of q18-inner")
+        for r in records:
+            if set(r["kernel_libraries"]) != {"sorted_grouped_sum", "grouped_aggregate"}:
+                fail(f"executor {r['pid']} loaded {sorted(r['kernel_libraries'])}")
+        listed = [mib for mib in result["compute_apps_mib"].values() if mib]
+        if any(ex.pid in apps for ex in first):
+            if len(listed) != len(first):
+                fail(f"nvidia-smi lists {result['compute_apps_mib']} for the executors")
+        elif not all(r["max_memory_reserved"] > 0 for r in records):
+            # nvidia-smi in another pid namespace lists other pids: the
+            # executors' own allocators must then show the memory
+            fail(f"no executor pid in nvidia-smi's {apps}, and an executor "
+                 "reserved no device memory")
         # (d): two new executors (the build directory now warm); one dies
+        # between the stages of DAEMON_KILL, and the survivor stops
         t0 = time.perf_counter()
-        second = cluster.start_executors()
+        cluster.start_executors()
         result["restart_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        result["kill"] = _kill_part(cluster, client, answers)
-        result["kill"]["seconds"] = time.perf_counter() - t0
-        # (e): SIGINT the survivor and the scheduler
-        survivor = [ex for ex in second if ex.alive()]
-        (record,) = cluster.stop()
-        if cluster.scheduler.proc.returncode != 0:
-            fail(f"the scheduler exited with {cluster.scheduler.proc.returncode}")
+        result["kill"], run = _kill_part(cluster, client, answers)
+        (survivor,) = cluster.live_executors()
+        record = stop(survivor)
         if record["shuffle_tier_stats"].get("storage_fetch", 0) < 1:
             fail(f"the survivor read no piece from the shared tier: {record}")
         result["kill"]["survivor_shuffle_tier"] = record["shuffle_tier_stats"]
-        result["kill"]["survivor_pid"] = survivor[0].pid
-        for k, v in record["launch_counts"].items():
-            launches[k] += v
+        result["kill"]["survivor_pid"] = survivor.pid
+        result["kill"]["seconds"] = time.perf_counter() - t0
+        # two more; the one that runs the slowed task dies while it runs it
+        t0 = time.perf_counter()
+        cluster.start_executors()
+        result["kill_running"] = _kill_running_part(cluster, client, run)
+        result["kill_running"]["seconds"] = time.perf_counter() - t0
+        # (e): SIGINT the last survivor and the scheduler
+        (survivor,) = cluster.live_executors()
+        result["kill_running"]["survivor_pid"] = survivor.pid
+        stop(survivor)
+        cluster.scheduler.interrupt(60)
+        if cluster.scheduler.proc.returncode != 0:
+            fail(f"the scheduler exited with {cluster.scheduler.proc.returncode}")
     finally:
         left = [d.name for d in [cluster.scheduler, *cluster.executors] if d and d.alive()]
         cluster.close()

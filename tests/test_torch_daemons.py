@@ -16,13 +16,19 @@ backend, whose kernel wrappers take their plain versions on CPU tensors.
   the answer is bit-equal to a clean run, the survivor reads the dead
   process's pieces from the shared directory, and no task waits for the
   60 s executor lease.
+- An executor SIGKILLed while it runs a task of q3: the scheduler forgets
+  it and puts the task back at once, not after the lease; the answer is
+  bit-equal.
 - SIGINT stops an executor and prints its one {"executor_stop"} line.
 - Faults the process boundary showed (ROADMAP.md §3): an executor started
-  before its scheduler joined seconds late (F6), and SIGINT did not stop a
-  daemon (F7).
+  before its scheduler joined seconds late (F6), SIGINT did not stop a
+  daemon (F7), a task on a killed executor waited out the lease (F8), push
+  dispatch sent a narrow stage to one executor (F9), and a daemon started
+  with SIGINT ignored never stopped on it (F10).
 
-Every daemon is started with a timeout on its readiness and killed by its
-fixture's finalizer.
+The executors run with their default settings (four task slots). Every
+daemon is started with a timeout on its readiness and killed by its
+fixture's finalizer. The cluster helper is tests/torch_daemon_cluster.py.
 """
 
 import logging
@@ -37,11 +43,12 @@ import pyarrow as pa
 import pytest
 
 import ballista_tpu_torch.config as _port_config
-from ballista_tpu_torch.daemons import (
+from torch_daemon_cluster import (
     Daemon,
     DaemonCluster,
     free_port,
     kill_between_stages,
+    kill_while_running,
     parse_stop_record,
     straggler_seed,
 )
@@ -117,10 +124,32 @@ def jax_answers(tpch_dir):
 
 
 def _cluster(work) -> DaemonCluster:
-    # one task slot per executor: push dispatch fills the first subscriber's
-    # slots before it offers the next, so with more slots one executor would
-    # take every task of these small stages
-    return DaemonCluster(str(work), device="cpu", concurrent_tasks=1, timeout=TIMEOUT)
+    return DaemonCluster(str(work), device="cpu", timeout=TIMEOUT)
+
+
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+
+
+def _slowed_run(cluster, tpch_dir):
+    """A clean run of q3, then a client whose chaos slows one task of
+    q3's last map stage (at attempts 0 and 1) and no other: (ctx, chaos
+    client, plan, clean answer, the slowed (stage, partition), the final
+    stage, the jobs before)."""
+    ctx = _client(cluster.scheduler_addr, tpch_dir)
+    plan = ctx.sql(_sql("q3")).logical_plan()
+    clean = ctx.collect(plan)
+    jobs = {t["job"] for t in cluster.tasks()}
+    coords = sorted({(t["stage"], t["partition"]) for t in cluster.tasks()})
+    final = max(s for s, _p in coords)
+    # the last task of the last map stage holds the final stage back
+    slowed = max(c for c in coords if c[0] < final)
+    seed = straggler_seed(coords, slowed, SLOW_RATE)
+    chaos = _client(cluster.scheduler_addr, tpch_dir, {
+        "ballista.chaos.rate": str(SLOW_RATE), "ballista.chaos.sites": "task.slow",
+        "ballista.chaos.slow_ms": str(SLOW_MS), "ballista.chaos.seed": str(seed)})
+    return ctx, chaos, plan, clean, slowed, final, jobs
 
 
 @pytest.fixture(scope="module")
@@ -176,12 +205,10 @@ def test_collect_stream_through_daemons_equals_collect(daemons, tpch_dir, name):
 
 def test_local_mode_answers_as_the_cluster(tmp_path, tpch_dir, jax_answers):
     port = free_port()
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
     d = Daemon("local", [sys.executable, "-m", "ballista_tpu_torch.executor", "--local",
                          "--scheduler-port", str(port), "--port", str(free_port()),
                          "--external-host", "127.0.0.1", "--device", "cpu"],
-               str(tmp_path), env, tmp_path / "local.log")
+               str(tmp_path), _env(), tmp_path / "local.log")
     try:
         d.wait_for(r"executor up \(id=.*backend=cuda, device=cpu\)", TIMEOUT)
         ctx = _client(("127.0.0.1", port), tpch_dir)
@@ -201,18 +228,7 @@ def test_sigkill_between_stages_is_bit_identical(tmp_path, tpch_dir):
     cluster = _cluster(tmp_path)
     try:
         cluster.start()
-        ctx = _client(cluster.scheduler_addr, tpch_dir)
-        plan = ctx.sql(_sql("q3")).logical_plan()
-        clean = ctx.collect(plan)
-        jobs = {t["job"] for t in cluster.tasks()}
-        coords = sorted({(t["stage"], t["partition"]) for t in cluster.tasks()})
-        final = max(s for s, _p in coords)
-        # the last task of the last map stage holds the final stage back
-        slowed = max(c for c in coords if c[0] < final)
-        seed = straggler_seed(coords, slowed, SLOW_RATE)
-        chaos = _client(cluster.scheduler_addr, tpch_dir, {
-            "ballista.chaos.rate": str(SLOW_RATE), "ballista.chaos.sites": "task.slow",
-            "ballista.chaos.slow_ms": str(SLOW_MS), "ballista.chaos.seed": str(seed)})
+        ctx, chaos, plan, clean, slowed, final, jobs = _slowed_run(cluster, tpch_dir)
         job = chaos.submit(plan)
         kill = kill_between_stages(cluster, job, slowed, timeout=TIMEOUT)
         got = chaos._collect_results(job, plan.schema(), timeout=TIMEOUT)
@@ -239,6 +255,94 @@ def test_sigkill_between_stages_is_bit_identical(tmp_path, tpch_dir):
         cluster.close()
 
 
+def test_sigkill_while_a_task_runs_is_reset_at_once(tmp_path, tpch_dir):
+    """F8: an executor SIGKILLed while it runs a task. Its push stream
+    breaks and its Flight port refuses connections, so the scheduler
+    forgets it and resets the task at once; it held the executor
+    registered, and the task, until the 60 s lease lapsed."""
+    cluster = _cluster(tmp_path)
+    try:
+        cluster.start()
+        ctx, chaos, plan, clean, slowed, _final, _jobs = _slowed_run(cluster, tpch_dir)
+        job = chaos.submit(plan)
+        kill = kill_while_running(cluster, job, slowed, timeout=LEASE_S / 2)
+        got = chaos._collect_results(job, plan.schema(), timeout=TIMEOUT)
+        kill_to_answer = time.time() - kill["killed_at"]
+        assert got.equals(clean)
+        assert kill["kill_to_forget_s"] < LEASE_S / 4, kill
+        assert kill["kill_to_reset_s"] < LEASE_S / 4, kill
+        assert kill_to_answer < LEASE_S / 2, kill_to_answer
+        (survivor,) = cluster.live_executors()
+        tasks = [t for t in cluster.tasks() if t["job"] == job]
+        assert all(t["state"] == "completed" for t in tasks)
+        assert {t["executor"] for t in tasks if tuple(slowed) == (t["stage"], t["partition"])} \
+            == {survivor.executor_id}
+        chaos.close()
+        ctx.close()
+        cluster.stop(TIMEOUT)
+    finally:
+        cluster.close()
+
+
+def test_push_dispatch_spreads_a_stage_over_the_executors():
+    """F9: two subscribed executors with four slots each and a stage of two
+    tasks: one push pump hands each executor one task. It filled the first
+    subscriber's slots before offering the next, so both went to one
+    executor while the other idled."""
+    from ballista_tpu_torch.physical.basic import EmptyExec
+    from ballista_tpu_torch.proto import ballista_pb2 as pb
+    from ballista_tpu_torch.scheduler.kv import MemoryBackend
+    from ballista_tpu_torch.scheduler.server import SchedulerServer, _PushSubscriber
+
+    server = SchedulerServer(MemoryBackend(), synchronous_planning=True)
+    state = server.state
+    running = pb.JobStatus()
+    running.running.SetInParent()
+    state.save_job_metadata("j", running)
+    state.save_stage_plan("j", 1, EmptyExec(True, pa.schema([("a", pa.int64())])))
+    for part in range(2):
+        task = pb.TaskStatus()
+        task.partition_id.job_id, task.partition_id.stage_id = "j", 1
+        task.partition_id.partition_id = part
+        state.save_task_status(task)
+    subs = []
+    for eid in ("e1", "e2"):
+        state.save_executor_metadata(pb.ExecutorMetadata(id=eid, host="127.0.0.1", port=1))
+        subs.append(_PushSubscriber(eid, slots=4))
+        with server._push_mu:
+            server._subscribers[eid] = subs[-1]
+    with state.kv.lock():
+        assert server._pump_pushes() == 2
+    assert [sub.queue.qsize() for sub in subs] == [1, 1]
+    assert {t.running.executor_id for t in state.get_all_tasks()} == {"e1", "e2"}
+
+
+@pytest.mark.parametrize("daemon", ["scheduler", "executor"])
+def test_daemon_started_with_sigint_ignored_stops_on_sigint(tmp_path, daemon):
+    """F10: a daemon started from a shell's background (or nohup) inherits
+    SIGINT ignored; it restores the handler, so SIGINT still stops it
+    cleanly. It ignored SIGINT, and only SIGKILL ended it."""
+    port = free_port()
+    if daemon == "scheduler":
+        args = ["ballista_tpu_torch.scheduler", "--bind-host", "127.0.0.1",
+                "--port", str(port)]
+        ready = r"scheduler up"
+    else:
+        args = ["ballista_tpu_torch.executor", "--local", "--scheduler-port", str(port),
+                "--port", str(free_port()), "--external-host", "127.0.0.1", "--device", "cpu"]
+        ready = r"executor up \(id="
+    # sh passes an ignored SIGINT on through exec, as a background job's is
+    d = Daemon(daemon, ["sh", "-c", 'trap "" INT; exec "$0" "$@"', sys.executable, "-m", *args],
+               str(tmp_path), _env(), tmp_path / f"{daemon}.log")
+    try:
+        d.wait_for(ready, TIMEOUT)
+        assert d.interrupt(20) == 0, d.tail()
+        if daemon == "executor":
+            assert parse_stop_record(line for _t, line in d.lines) is not None, d.tail()
+    finally:
+        d.close()
+
+
 def test_executor_joins_a_scheduler_started_after_it(tmp_path):
     """F6: a channel that failed to connect is dropped, so a process that
     started before its scheduler daemon, or outlived it, connects within one
@@ -249,8 +353,7 @@ def test_executor_joins_a_scheduler_started_after_it(tmp_path):
 
     port = free_port()
     client = SchedulerGrpcClient("127.0.0.1", port, retries=0)
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+    env = _env()
     scheds = []
     try:
         for start in range(2):
@@ -323,13 +426,13 @@ def test_daemon_config_precedence(tmp_path, monkeypatch):
         return load_config(_SPEC, "BALLISTA_EXECUTOR_", "", argv=argv)
 
     assert load([])["backend"] == "cuda"
-    assert load([])["concurrent_tasks"] == 4 and load([])["prewarm"] is False
+    assert load([])["concurrent_tasks"] == 4 and load([])["device"] == ""
     monkeypatch.setenv("BALLISTA_EXECUTOR_CONCURRENT_TASKS", "2")
     assert load([])["concurrent_tasks"] == 2
     toml = tmp_path / "executor.toml"
-    toml.write_text('concurrent_tasks = 3\nbackend = "cuda"\nprewarm = true\n')
+    toml.write_text('concurrent_tasks = 3\nbackend = "cuda"\ndevice = "cpu"\n')
     cfg = load(["--config-file", str(toml)])
-    assert (cfg["concurrent_tasks"], cfg["prewarm"]) == (3, True)
+    assert (cfg["concurrent_tasks"], cfg["device"]) == (3, "cpu")
     assert load(["--config-file", str(toml), "--concurrent-tasks", "5"])["concurrent_tasks"] == 5
     example = str(ROOT / "examples/executor.toml")
     assert load(["--config-file", example])["backend"] == "cpu"

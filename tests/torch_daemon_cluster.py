@@ -1,9 +1,11 @@
-"""One host's deployment as processes: the scheduler daemon and executor
-daemons, each started with ``python -m``, as deployment/docker-compose.yaml
-lays them out (one scheduler on an sqlite store, executors publishing their
-shuffle pieces to one shared directory).
+"""One host's deployment of the port as processes, for
+tests/test_torch_daemons.py and chip_smoke.py's phase 13: the scheduler
+daemon and two executor daemons, each started with ``python -m``, as
+deployment/docker-compose.yaml lays them out (one scheduler on an sqlite
+store, executors publishing their shuffle pieces to one shared directory).
+Deployments start the daemons themselves and never import this module.
 
-    cluster = DaemonCluster(work_dir, n_executors=2)   # executors on the GPU
+    cluster = DaemonCluster(work_dir)   # executors on the GPU
     cluster.start()
     ctx = BallistaContext(*cluster.scheduler_addr)
     ...
@@ -15,7 +17,8 @@ logging) and written to ``<work_dir>/<name>.log``. Readiness is read from the
 daemons' own lines: the scheduler's "scheduler up", each executor's
 "executor up" and the scheduler's "executor <id> subscribed". The scheduler's
 store is a file, so task statuses can be read from this process while it
-runs (`tasks`).
+runs (`tasks`, which reads the scheduler's KV layout from outside it: a
+change there shows as a failing test).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import random
 import re
 import signal
 import socket
@@ -38,13 +42,19 @@ _EXECUTOR_UP = re.compile(r"executor up \(id=([^,]+),.*backend=([^,]+), device=(
 
 
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _default_sigint() -> None:
-    signal.signal(signal.SIGINT, signal.SIG_DFL)
+    """A port free now, below Linux's ephemeral range (32768-60999): a port
+    the kernel hands out (bind to 0, an outgoing connection) could go to
+    another process in the seconds before the daemon binds it."""
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free port in 20000-32767")
 
 
 class Daemon:
@@ -57,15 +67,8 @@ class Daemon:
         self._cv = threading.Condition()
         self._log = open(log_path, "w")
         self.started = time.time()
-        # a process started in the background of a shell has SIGINT ignored,
-        # its children inherit that, and Python then never raises
-        # KeyboardInterrupt: the daemons stop on SIGINT, so give it back its
-        # default there (only there: preexec_fn makes Popen fork)
-        ignored = signal.getsignal(signal.SIGINT) == signal.SIG_IGN
-        self.proc = subprocess.Popen(
-            argv, cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, preexec_fn=_default_sigint if ignored else None,
-        )
+        self.proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
         self.pid = self.proc.pid
         # an executor's, from its start line (DaemonCluster.start_executors)
         self.up_at = self.executor_id = self.backend = self.device = None
@@ -141,22 +144,18 @@ def parse_stop_record(lines) -> Optional[dict]:
 
 
 class DaemonCluster:
-    """A scheduler daemon on an sqlite file and `n_executors` executor
-    daemons on one shared shuffle directory, all under `work_dir`, started
-    from the checkout at `root` (the directory that holds
-    ballista_tpu_torch/). `device` is each executor's --device ("" = the
-    GPU)."""
+    """A scheduler daemon on an sqlite file and executor daemons (their
+    default settings) on one shared shuffle directory, all under
+    `work_dir`, started from the checkout at `root` (the directory that
+    holds ballista_tpu_torch/). `device` is each executor's --device ("" =
+    the GPU); `timeout` bounds each daemon's readiness."""
 
-    def __init__(self, work_dir: str, n_executors: int = 2, device: str = "",
-                 root: Optional[str] = None, concurrent_tasks: int = 4,
-                 prewarm: bool = False, timeout: float = 120.0) -> None:
+    def __init__(self, work_dir: str, device: str = "", root: Optional[str] = None,
+                 timeout: float = 120.0) -> None:
         self.work = pathlib.Path(work_dir)
         self.work.mkdir(parents=True, exist_ok=True)
         self.root = str(root or _ROOT)
-        self.n_executors = n_executors
         self.device = device
-        self.concurrent_tasks = concurrent_tasks
-        self.prewarm = prewarm
         self.timeout = timeout
         self.db = str(self.work / "scheduler.db")
         self.shuffle_dir = str(self.work / "shuffle")
@@ -177,23 +176,21 @@ class DaemonCluster:
                       self.env, self.work / f"{name}.log")
 
     def start_executors(self) -> List[Daemon]:
-        """Start n_executors executors at once and wait until each has
-        printed its start line and the scheduler has taken its push
-        subscription. Returns them."""
+        """Start two executors at once (docker-compose.yaml's two) and wait
+        until each has printed its start line and the scheduler has taken
+        its push subscription. Returns them."""
         self._generation += 1
         started = []
-        for i in range(self.n_executors):
+        for i in range(2):
             name = f"executor{self._generation}-{i}"
             args = ["--scheduler-host", "127.0.0.1", "--scheduler-port", str(self.port),
                     "--bind-host", "127.0.0.1", "--external-host", "127.0.0.1",
-                    "--port", str(free_port()), "--namespace", self.namespace,
-                    "--concurrent-tasks", str(self.concurrent_tasks),
+                    # 0: the executor takes a free port as it binds
+                    "--port", "0", "--namespace", self.namespace,
                     "--shuffle-tier", "shared", "--shuffle-dir", self.shuffle_dir,
                     "--work-dir", str(self.work / name)]
             if self.device:
                 args += ["--device", self.device]
-            if self.prewarm:
-                args.append("--prewarm")
             started.append(self._module(name, "ballista_tpu_torch.executor", args))
         self.executors.extend(started)
         for ex in started:
@@ -218,22 +215,32 @@ class DaemonCluster:
     def live_executors(self) -> List[Daemon]:
         return [ex for ex in self.executors if ex.alive()]
 
-    def tasks(self) -> List[dict]:
-        """Every task status in the scheduler's store, read from its file:
-        {"job", "stage", "partition", "state" (pending / running /
-        completed / failed / ...), "executor", "attempt", "storage_uri"}."""
-        from ballista_tpu_torch.proto import ballista_pb2 as pb
-
-        prefix = f"/ballista/{self.namespace}/tasks/"
+    def _rows(self, prefix: str) -> List[tuple]:
+        """(key without `prefix`, value) of the store's live rows under
+        /ballista/<namespace>/<prefix>, read from its file."""
+        full = f"/ballista/{self.namespace}/{prefix}"
         con = sqlite3.connect(f"file:{self.db}?mode=ro", uri=True, timeout=10)
         try:
-            rows = con.execute("SELECT key, value FROM kv WHERE key >= ? AND key < ?",
-                               (prefix, prefix + "\uffff")).fetchall()
+            rows = con.execute("SELECT key, value, expires FROM kv WHERE key >= ? AND key < ?",
+                               (full, full + "\uffff")).fetchall()
         finally:
             con.close()
+        now = time.time()
+        return [(k[len(full):], v) for k, v, exp in rows if exp is None or exp > now]
+
+    def executor_ids(self) -> set:
+        """The executors the scheduler holds registered (lease not lapsed)."""
+        return {key for key, _v in self._rows("executors/")}
+
+    def tasks(self) -> List[dict]:
+        """Every task status in the scheduler's store: {"job", "stage",
+        "partition", "state" (pending / running / completed / failed /
+        ...), "executor", "attempt", "storage_uri"}."""
+        from ballista_tpu_torch.proto import ballista_pb2 as pb
+
         out = []
-        for key, value in rows:
-            job, stage, part = key[len(prefix):].split("/")
+        for key, value in self._rows("tasks/"):
+            job, stage, part = key.split("/")
             st = pb.TaskStatus()
             st.ParseFromString(value)
             state = st.WhichOneof("status") or "pending"
@@ -314,3 +321,49 @@ def kill_between_stages(cluster: DaemonCluster, job: str, slowed: tuple,
                             "killed_at": time.time(), "victim_outputs": outputs}
         time.sleep(0.01)
     raise TimeoutError(f"no executor was free of {job} while {slowed} ran")
+
+
+def kill_while_running(cluster: DaemonCluster, job: str, slowed: tuple,
+                       timeout: float = 120.0) -> dict:
+    """SIGKILL the executor that runs the task `slowed` (stage, partition)
+    of `job` while it runs it. Then wait until the scheduler no longer
+    holds the dead executor registered, and until the task is back in
+    other hands (a later attempt, or ended). Returns {"victim" (the
+    Daemon), "killed_at" (time.time()), "kill_to_forget_s",
+    "kill_to_reset_s"}; raises when either wait passes `timeout`."""
+    by_id = {ex.executor_id: ex for ex in cluster.live_executors()}
+
+    def slowed_task():
+        for t in cluster.tasks():
+            if (t["job"], t["stage"], t["partition"]) == (job, *slowed):
+                return t
+        return None
+
+    def wait(what, done):
+        while time.time() < deadline:
+            if done():
+                return time.time() - killed_at
+            time.sleep(0.01)
+        raise TimeoutError(f"{what} {time.time() - killed_at:.1f} s after the kill")
+
+    deadline = time.time() + timeout
+    while True:
+        t = slowed_task()
+        if t is not None and t["state"] in ("completed", "failed"):
+            raise RuntimeError(f"task {slowed} of {job} ended before the kill")
+        if t is not None and t["state"] == "running" and t["executor"] in by_id:
+            break
+        if time.time() > deadline:
+            raise TimeoutError(f"task {slowed} of {job} never ran on a live executor")
+        time.sleep(0.01)
+    victim, attempt = by_id[t["executor"]], t["attempt"]
+    victim.kill()
+    killed_at = time.time()
+    deadline = killed_at + timeout
+    forget_s = wait(f"the scheduler still held {victim.executor_id}",
+                    lambda: victim.executor_id not in cluster.executor_ids())
+    reset_s = wait(f"task {slowed} of {job} was still attempt {attempt} on the dead executor",
+                   lambda: (lambda t: t["attempt"] > attempt
+                            or t["state"] in ("completed", "failed"))(slowed_task()))
+    return {"victim": victim, "killed_at": killed_at, "kill_to_forget_s": forget_s,
+            "kill_to_reset_s": reset_s}
