@@ -159,7 +159,10 @@ class PollLoop:
         keeps heartbeating throughout (statuses ride it; the lease stays
         fresh, so no recovery machinery fires on a draining executor), and
         the push stream is cancelled so the scheduler's pump stops
-        offering credit here. Returns False when in-flight work outlives
+        offering credit here. The polls say that this executor drains, so
+        that the scheduler takes back, with no retry, whatever it pushed
+        here and the echo does not hold (the cancel drops pushes not yet
+        read). Returns False when in-flight work outlives
         `timeout` — the caller decides whether to stop anyway (which would
         reintroduce the recovery path drain exists to avoid)."""
         from ballista_tpu_torch.ops.runtime import record_fleet
@@ -340,9 +343,12 @@ class PollLoop:
         latency harness asserts a healthy push cluster runs with ZERO
         poll-dispatched tasks); the moment the stream drops, polls pull
         work again — that IS the fallback."""
+        # read before the in-flight snapshot: a poll marked draining
+        # echoes all that this executor took before it stopped taking work
+        draining = self._draining.is_set()
         slot_held = (
             False
-            if self._stream_ok.is_set() or self._draining.is_set()
+            if self._stream_ok.is_set() or draining
             else self._available.acquire(blocking=False)
         )
         # snapshot in-flight BEFORE draining statuses: a task finishing in
@@ -368,7 +374,7 @@ class PollLoop:
                 e.attempt = attempt
             for st in statuses:
                 params.task_status.add().CopyFrom(st)
-            result = self.scheduler.poll_work(params)
+            result = self.scheduler.poll_work(params, draining=draining)
         except Exception:
             if slot_held:
                 self._available.release()

@@ -19,6 +19,11 @@ from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.utils.locks import make_lock
 
 SERVICE_NAME = "ballista.SchedulerGrpc"
+# call metadata on a PollWork from an executor that is draining (graceful
+# scale-in): it takes no new work, its push stream is cancelled, and its
+# echo lists every task it holds. Metadata, so the wire messages stay as
+# they are.
+DRAINING_METADATA = ("ballista-draining", "1")
 
 # serialized logical plans embed in-memory table data; gRPC's 4MB default
 # rejects them for anything but toy tables. 256MB matches the data sizes the
@@ -275,11 +280,12 @@ class SchedulerGrpcClient:
             self._chaos_calls[name] = n
         return f"{name}/{n}"
 
-    def _call(self, name: str, params, also_transient=None):
+    def _call(self, name: str, params, also_transient=None, metadata=None):
         """One RPC with the transient-retry loop. `also_transient` is an
         optional predicate over the error detail string for responses a
         specific method knows to be retryable (e.g. the GetFileMetadata
-        throttle hint) even though their status code says otherwise."""
+        throttle hint) even though their status code says otherwise;
+        `metadata` goes with the call."""
         from ballista_tpu_torch.errors import RpcError
         from ballista_tpu_torch.ops.runtime import record_recovery
         from ballista_tpu_torch.utils.chaos import ChaosInjected
@@ -291,7 +297,7 @@ class SchedulerGrpcClient:
             try:
                 if self.chaos is not None:
                     self.chaos.maybe_fail("rpc.call", self._chaos_key(name))
-                out = stub(params)
+                out = stub(params, metadata=metadata)
                 self._note_answered(idx, ch)
                 return out
             except ChaosInjected as e:
@@ -341,8 +347,9 @@ class SchedulerGrpcClient:
     def execute_query(self, params: pb.ExecuteQueryParams) -> pb.ExecuteQueryResult:
         return self._call("ExecuteQuery", params)
 
-    def poll_work(self, params: pb.PollWorkParams) -> pb.PollWorkResult:
-        return self._call("PollWork", params)
+    def poll_work(self, params: pb.PollWorkParams, draining: bool = False) -> pb.PollWorkResult:
+        return self._call("PollWork", params,
+                          metadata=(DRAINING_METADATA,) if draining else None)
 
     def subscribe_work(self, params: pb.SubscribeWorkParams):
         """Open the push-dispatch stream (ISSUE 8). Returns the live gRPC

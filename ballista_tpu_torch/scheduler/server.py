@@ -32,7 +32,7 @@ from ballista_tpu_torch.distributed.planner import DistributedPlanner
 from ballista_tpu_torch.engine.context import ExecutionContext
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.kv import KvBackend, MemoryBackend
-from ballista_tpu_torch.scheduler.rpc import add_scheduler_service
+from ballista_tpu_torch.scheduler.rpc import DRAINING_METADATA, add_scheduler_service
 from ballista_tpu_torch.scheduler.state import SchedulerState
 from ballista_tpu_torch.serde.arrow import schema_to_ipc
 from ballista_tpu_torch.serde.logical import plan_from_proto
@@ -1232,10 +1232,55 @@ class SchedulerServer:
                 departed = not sub.closed.is_set() and not self.crashed
                 self._close_subscriber(sub)
                 if departed:
+                    try:
+                        with self.state.kv.lock():
+                            self._withdraw_unsent_locked(sub)
+                    except Exception:
+                        log.warning("taking back the unsent pushes of %s failed",
+                                    sub.executor_id, exc_info=True)
                     threading.Thread(target=self._reap_if_dead, args=(sub.executor_id,),
                                      daemon=True).start()
 
         return stream()
+
+    def _withdraw_unsent_locked(self, sub: _PushSubscriber) -> None:
+        """A closed push stream's queue never reached its executor: put
+        what it holds back to pending at the same attempt, with no retry
+        charged, before the reaper or the lease can count it lost with the
+        executor. Caller holds the KV lock."""
+        queued = []
+        while True:
+            try:
+                td = sub.queue.get_nowait()
+            except queue.Empty:
+                break
+            for t in (td, *td.siblings) if td is not None else ():
+                pid = t.task_id
+                queued.append(((pid.job_id, pid.stage_id, pid.partition_id), t.attempt))
+        self._note_withdrawn(sub.executor_id, sum(
+            self.state.withdraw_push(sub.executor_id, key, attempt, sent=False)
+            for key, attempt in queued))
+
+    def _retire_pushes_locked(self, executor_id: str) -> None:
+        """A PollWork from a draining executor, after its echo was folded:
+        stop pushing to it, and take back every assignment it did not echo,
+        with no retry charged. Its cancel drops pushes it had not read, so
+        each one sent goes back past its attempt: were it read after all,
+        its late report is then stale. Caller holds the KV lock."""
+        with self._push_mu:
+            sub = self._subscribers.get(executor_id)
+        if sub is not None:
+            self._close_subscriber(sub)
+            self._withdraw_unsent_locked(sub)
+        self._note_withdrawn(executor_id, self.state.withdraw_unechoed(executor_id))
+
+    def _note_withdrawn(self, executor_id: str, n: int) -> None:
+        from ballista_tpu_torch.ops.runtime import record_serving
+
+        if n:
+            record_serving("push_withdrawn", n)
+            log.info("took back %d task(s) pushed to %s", n, executor_id)
+            self._pump_pushes()
 
     def _reap_if_dead(self, executor_id: str) -> None:
         """An executor's push stream ended from its side. When its Flight
@@ -1275,6 +1320,8 @@ class SchedulerServer:
         import time as _time
 
         self._refuse_if_crashed(context)
+        draining = context is not None and DRAINING_METADATA in (
+            context.invocation_metadata() or ())
         with self.state.kv.lock():
             self.state.save_executor_metadata(request.metadata)
             now = _time.time()
@@ -1333,6 +1380,8 @@ class SchedulerServer:
                     "requeued %d orphaned assignment(s) for executor %s",
                     n, request.metadata.id,
                 )
+            if draining:
+                self._retire_pushes_locked(request.metadata.id)
             # push-credit resolution (ISSUE 8): a terminal status from this
             # executor frees the pushed-task credit it held
             with self._push_mu:

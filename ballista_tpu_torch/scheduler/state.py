@@ -1896,6 +1896,62 @@ class SchedulerState:
                             job_id, BALLISTA_MAX_TASK_RETRIES, raw)
         return self.config.max_task_retries()
 
+    def withdraw_push(
+        self, executor_id: str, key: Tuple[str, int, int], attempt: int, sent: bool
+    ) -> bool:
+        """Take back one task pushed to an executor that never echoed it,
+        with no retry charged: a draining executor cancels its push stream,
+        and what the pump had queued or sent there and it had not read is
+        lost. Without this the task sat on the retired executor until a
+        lease or the dead-executor reaper reset it, as a retry.
+
+        A task still queued (`sent` False) never left the scheduler: it
+        goes back to pending at the same attempt. One sent may have been
+        read after all, and would then run: it goes back past its attempt
+        (the number moves on, as after a speculative launch), so that a
+        late report of that attempt is dropped as stale; a speculative
+        duplicate is retired as superseded, so its late report counts as
+        an abandoned duplicate's. A task the executor echoed, or that was
+        resolved or reassigned, is left alone. Caller holds the KV lock.
+        Returns True when the task was taken back."""
+        spec = self._speculative.get(key)
+        if spec is not None and spec[:2] == (executor_id, attempt):
+            if spec[3]:  # echoed
+                return False
+            if sent:
+                self._spec_superseded.setdefault(key, set()).add(attempt)
+            self._spec_del(key)
+            return True
+        if self._assigned.get(key, (None, None))[:2] != (executor_id, attempt):
+            return False  # echoed, resolved or reassigned
+        cur = self.get_task_status(*key)
+        if (
+            cur is None
+            or cur.WhichOneof("status") != "running"
+            or cur.attempt != attempt
+            or cur.running.executor_id != executor_id
+        ):
+            return False
+        self._note_batch_member_done(key, clean=False)
+        pending = pb.TaskStatus()
+        pending.partition_id.CopyFrom(cur.partition_id)
+        pending.attempt = max(attempt, self._spec_attempt_floor(key)) + 1 if sent else attempt
+        pending.history.MergeFrom(cur.history)
+        if not self.save_task_status(pending):
+            return False
+        self._ledger_del(key)
+        return True
+
+    def withdraw_unechoed(self, executor_id: str) -> int:
+        """A draining executor's poll was folded: every assignment to it
+        that it has still not echoed was sent and never read (or read only
+        after its echo was taken); take each back past its attempt
+        (`withdraw_push`). Caller holds the KV lock. Returns the tasks
+        taken back."""
+        owned = [(k, e[1]) for k, e in self._assigned.items() if e[0] == executor_id]
+        owned += [(k, e[1]) for k, e in self._speculative.items() if e[0] == executor_id]
+        return sum(self.withdraw_push(executor_id, k, a, sent=True) for k, a in owned)
+
     def requeue_task(
         self, t: pb.TaskStatus, executor_id: str, error: str, limit: int,
         promote: bool = True,

@@ -225,6 +225,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    which then fails the run. Printed as one {"daemons": ...} line;
    the executors' launches count in the kernels line.
 
+14. bench (runs after phase 13, over phase 3's data): the port's benchmark
+   entry, each part in a fresh process on the card with its dataset root
+   (BENCH_CACHE_DIR) in a temporary directory that links phase 3's data:
+   `python -m ballista_tpu_torch.bench` with BENCH_CONFIGS q1, q3 and q6
+   at --sf and no scenario (the rows, then both taxi shapes at 10 M trips
+   generated there); BENCH_ELASTIC_ONLY (60,000 rows) and
+   BENCH_REPLICA_ONLY (40,000 rows, two clients, 4 s per leg); the TPC-H
+   runner's `benchmark --query 1 --iterations 2 --backend cuda`; and the
+   comparison (`bench.compare`) on q1, q3, q5, q6, q10 and q12
+   against the "cpu" backend and the pyarrow code (the pandas oracles,
+   about 80 s at SF 1, are held to all 22 queries in
+   tests/test_torch_bench.py instead).
+   Every row must report "match": true, a device route with no decline,
+   its kernel launches, residency and h2d_chunk_bytes; the fleet must scale
+   up and down with zero task retries and equal answers; the replica run
+   must kill one of its two schedulers and keep its answers; the runner
+   must answer q1's 4 rows; the comparison must find no mismatch. Printed
+   as one {"bench": ...} line with each part's seconds; the rows' kernel
+   launches count in the kernels line.
+
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
 routing; phase 8 seeds its store where it says so.
@@ -240,6 +260,7 @@ kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
 line of phase 10, the {"shared_mesh": ...} line of phase 11, the
 {"serving": ...} line of phase 12, the {"daemons": ...} line of phase 13,
+the {"bench": ...} line of phase 14,
 one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
@@ -2972,6 +2993,129 @@ def phase_daemons(data_dir: str, answers: dict, dist: dict):
     return result, launches
 
 
+# phase 14: the port's benchmark entry in fresh processes over phase 3's data
+BENCH_ROWS = ["q1", "q3", "q6"]
+BENCH_COMPARE = ["q1", "q3", "q5", "q6", "q10", "q12"]
+BENCH_TAXI = ["taxi_10M_265groups", "taxi_10M_10kgroups"]
+# the stage routes that run on the card (ops/runtime.py::record_route)
+DEVICE_ROUTES = {"batches", "sorted", "pallas_sorted", "fact_topk", "fact_select",
+                 "fact_secondary"}
+BENCH_KNOBS = {"BENCH_ELASTIC_ROWS": "60000", "BENCH_REPLICA_ROWS": "40000",
+               "BENCH_REPLICA_DURATION": "4", "BENCH_REPLICA_CLIENTS": "2"}
+
+
+def _bench_process(args: list, env: dict, timeout: float):
+    """Run `python <args>` from the checkout in its own session (its
+    client processes included), killed whole on timeout; returns (exit
+    code, stdout, stderr, seconds)."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *args], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"bench: {' '.join(args)} still running after {timeout:.0f} s; killed\n{err[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _bench_json(args: list, env: dict, timeout: float) -> tuple:
+    rc, out, err, secs = _bench_process(args, env, timeout)
+    if rc != 0:
+        fail(f"bench: {' '.join(args)} exited {rc}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1]), secs
+
+
+def _check_bench_row(row: dict) -> None:
+    name = f"{row['name']} sf={row['sf']}"
+    if row.get("match") is not True:
+        fail(f"bench: {name} does not hold its answer against the cpu backend")
+    routes = set(row["routes"])
+    if not routes or not routes <= DEVICE_ROUTES or row["declines"]:
+        fail(f"bench: {name} left the card: routes {row['routes']}, declines {row['declines']}")
+    for key in ("kernel_launches", "residency", "h2d_chunk_bytes"):
+        if key not in row:
+            fail(f"bench: {name} reports no {key}")
+
+
+def phase_bench(data_dir: str, sf: float):
+    """Phase 14: `python -m ballista_tpu_torch.bench` (q1, q3 and q6 over
+    phase 3's TPC-H, both taxi shapes at 10 M trips), its elastic and
+    replica scenarios, the TPC-H runner and the cross-engine comparison,
+    each in a fresh process on the card. Every row must hold its answer
+    against the "cpu" backend and stay on a device route with no decline;
+    the fleet must grow and drain with no task retry; the replica run must
+    fail over with the same answers; the runner must answer q1 and the
+    comparison must find no mismatch. Returns its record."""
+    import os
+
+    t_phase = time.perf_counter()
+    cache = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_bench_"))
+    try:
+        (cache / f"tpch_sf{float(sf)}").symlink_to(pathlib.Path(data_dir).resolve())
+        base = {k: v for k, v in os.environ.items()
+                if not (k.startswith("BENCH_") and k.endswith("_ONLY"))}
+        base.update(BENCH_CACHE_DIR=str(cache), **BENCH_KNOBS)
+        rows_env = {**base, "BENCH_SF": str(float(sf)),
+                    "BENCH_CONFIGS": ",".join(f"{float(sf)}:{q}" for q in BENCH_ROWS)}
+        # the entry's rows without its scenarios, which run alone below
+        result, rows_s = _bench_json(
+            ["-c", "import json; from ballista_tpu_torch.bench.__main__ import rows_result; "
+                   "print(json.dumps(rows_result()))"], rows_env, 600)
+        names = [r["name"] for r in result["configs"]]
+        if names != BENCH_ROWS + BENCH_TAXI:
+            fail(f"bench: rows {names}, expected {BENCH_ROWS + BENCH_TAXI}")
+        for row in result["configs"]:
+            _check_bench_row(row)
+        elastic, elastic_s = _bench_json(["-m", "ballista_tpu_torch.bench"],
+                                         {**base, "BENCH_ELASTIC_ONLY": "1"}, 300)
+        elastic = elastic["elastic"]
+        fleet = elastic["fleet"]
+        if (fleet.get("scale_up", 0) < 1 or fleet.get("scale_down", 0) < 1
+                or elastic["task_retries"] != 0 or not elastic["bit_identical"]):
+            fail(f"bench: the elastic fleet did not grow and drain cleanly: {elastic}")
+        replica, replica_s = _bench_json(["-m", "ballista_tpu_torch.bench"],
+                                         {**base, "BENCH_REPLICA_ONLY": "1"}, 400)
+        replica = replica["replica"]
+        if not replica["failover"]["killed"] or not replica["digests_identical"]:
+            fail(f"bench: the replica run did not fail over with equal answers: {replica}")
+        runner, runner_s = _bench_json(
+            ["-m", "ballista_tpu_torch.bench.runner", "benchmark", "--path", data_dir,
+             "--query", "1", "--iterations", "2", "--backend", "cuda"], base, 300)
+        if runner.get("q1", {}).get("rows") != 4:
+            fail(f"bench: the runner's q1 gave {runner}")
+        rc, out, err, compare_s = _bench_process(
+            ["-m", "ballista_tpu_torch.bench.compare", "--data", data_dir,
+             "--queries", *BENCH_COMPARE, "--iterations", "1",
+             "--engines", "cuda", "cpu", "pyarrow"], base, 400)
+        if rc != 0 or "0 cross-engine mismatches" not in err:
+            fail(f"bench: compare exited {rc}\n{err[-4000:]}")
+        table = [ln for ln in out.splitlines() if ln.startswith("| q") and "query" not in ln]
+        if [ln.split(" | ")[0][2:] for ln in table] != BENCH_COMPARE:
+            fail(f"bench: compare answered {table}")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    record = {
+        "rows": result["configs"], "headline": {k: result[k] for k in ("metric", "value",
+                                                                       "vs_baseline")},
+        "elastic": elastic, "replica": replica, "runner": runner, "compare": table,
+        "seconds": {"rows": rows_s, "elastic": elastic_s, "replica": replica_s,
+                    "runner": runner_s, "compare": compare_s,
+                    "phase": time.perf_counter() - t_phase},
+    }
+    log(f"bench: {len(result['configs'])} rows matched on device routes, elastic "
+        f"{fleet}, replica {replica['failover']}, phase {record['seconds']['phase']:.1f} s")
+    return record
+
+
 def _local_record(times: dict) -> dict:
     """A local-engine query record of phases 3, 6 and 7, for phase 10."""
     return {"declines": _host_declines(times, times.get("join_paths", {})),
@@ -3036,6 +3180,7 @@ def main() -> int:
             data_dir, {name: local_answers[name] for name in SERVING_MIX})
         daemon_times, daemon_launches = phase_daemons(
             data_dir, {name: local_answers[name] for name in DAEMON_QUERIES}, dist_times)
+        bench_times = phase_bench(data_dir, args.sf)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -3048,7 +3193,9 @@ def main() -> int:
                                  "distributed": dist_launches[k["name"]],
                                  "shared_mesh": shared_mesh_launches[k["name"]],
                                  "serving": serving_launches[k["name"]],
-                                 "daemons": daemon_launches[k["name"]]}
+                                 "daemons": daemon_launches[k["name"]],
+                                 "bench": sum(r["kernel_launches"][k["name"]]
+                                              for r in bench_times["rows"])}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
@@ -3057,6 +3204,7 @@ def main() -> int:
     print(json.dumps({"shared_mesh": shared_mesh_times}))
     print(json.dumps({"serving": serving_times}))
     print(json.dumps({"daemons": daemon_times}))
+    print(json.dumps({"bench": bench_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
