@@ -18,6 +18,7 @@ import time
 
 from ballista_tpu_torch.bench import data, device_arg
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed
+from ballista_tpu_torch.utils.locks import make_lock
 
 QUERIES = {
     "point": ("select count(*) as n, sum(l_extendedprice) as s from lineitem "
@@ -197,8 +198,9 @@ def _latency_scenario(device=None) -> dict:
                     host, port, str(d), client_settings, qlist, clients, duration,
                     device=device)
             else:
-                lat, ttfbs, errors = [], [], []
-                lock = threading.Lock()
+                errors = []
+                samples_lock = make_lock("bench.scenarios.latency.samples_lock")
+                samples: list = []  # (latency, ttfb); guarded-by: samples_lock
 
                 def worker(i: int) -> None:
                     try:
@@ -210,9 +212,8 @@ def _latency_scenario(device=None) -> dict:
                             if r is None:
                                 errors.append(f"client{i}: empty result")
                                 return
-                            with lock:
-                                lat.append(r[0])
-                                ttfbs.append(r[1])
+                            with samples_lock:
+                                samples.append((r[0], r[1]))
                         ctx.close()
                     except Exception as e:
                         errors.append(f"client{i}: {e!r}")
@@ -224,6 +225,9 @@ def _latency_scenario(device=None) -> dict:
                 for t in threads:
                     t.join(duration + 240)
                 wall = time.perf_counter() - t0
+                with samples_lock:
+                    lat = [s[0] for s in samples]
+                    ttfbs = [s[1] for s in samples]
                 qps = len(lat) / max(wall, 1e-9)
                 if errors or not lat:
                     raise ScenarioFailed(f"latency clients={clients}: "

@@ -14,6 +14,7 @@ import time
 from ballista_tpu_torch.bench import data, device_arg, synchronize
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed
 from ballista_tpu_torch.bench.tpch import QUERIES_DIR, check_answer
+from ballista_tpu_torch.utils.locks import make_lock
 
 
 def _multitenant_scenario(device=None) -> dict:
@@ -52,8 +53,8 @@ def _multitenant_scenario(device=None) -> dict:
             [int(z - 1) % len(queries) for z in rng.zipf(1.5, size=replays)]
             for _ in range(n_tenants)
         ]
-        lat: list = []  # (query index, seconds)
-        lat_lock = threading.Lock()
+        lat_lock = make_lock("bench.scenarios.multitenant.lat_lock")
+        samples: list = []  # (query index, seconds); guarded-by: lat_lock
         errors: list = []
 
         def replay(i: int) -> None:
@@ -68,7 +69,7 @@ def _multitenant_scenario(device=None) -> dict:
                     dt = time.perf_counter() - t0
                     check_answer(f"multitenant q{qi}", out, want[qi])
                     with lat_lock:
-                        lat.append((qi, dt))
+                        samples.append((qi, dt))
                 ctx.close()
             except Exception as e:
                 errors.append(f"tenant{i}: {e!r}")
@@ -83,6 +84,8 @@ def _multitenant_scenario(device=None) -> dict:
         for i, t in enumerate(threads):
             if t.is_alive():
                 errors.append(f"tenant{i}: still running after 600s")
+        with lat_lock:
+            lat = list(samples)
         if errors or not lat:
             raise ScenarioFailed(f"multitenant: {errors or ['no latencies']}")
         stats = tenancy_stats(reset=True)

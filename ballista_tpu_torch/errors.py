@@ -70,5 +70,14 @@ class ShuffleFetchError(RpcError):
         self.map_partition = map_partition
 
 
+class DeviceError(RuntimeError):
+    """A device-path failure that must not fall back to the host: a kernel
+    that does not build, load or launch, a stage run on a device it was
+    not prepared for, a mesh over CUDA devices that are missing. It is no
+    decline (``UnsupportedOnDevice``): it propagates and fails the query or
+    the task. A ``RuntimeError``, so callers that caught the untyped error
+    still catch it."""
+
+
 class ExecutionError(BallistaError):
     """Runtime failure while executing a physical plan."""

@@ -61,6 +61,8 @@ import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional, Tuple
 
+from ballista_tpu_torch.utils.locks import make_lock
+
 # bump to orphan every persisted entry (they are re-measured, not migrated)
 _FORMAT = 2
 _STORE_BASENAME = "costs_torch.json"
@@ -76,7 +78,7 @@ _FLUSH_INTERVAL_S = 5.0
 # observed/predicted ratio beyond which a decision counts as a mispredict
 MISPREDICT_FACTOR = 3.0
 
-_lock = threading.Lock()
+_lock = make_lock("ops.costmodel._lock")
 _dir: str = ""  # "" = in-memory only; guarded-by: _lock
 # lock-free: a single bool written by configure()/reset() and read on hot
 # paths; a stale read costs at most one missed or extra observation

@@ -37,10 +37,12 @@ import pathlib
 import re
 import shutil
 import subprocess
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ballista_tpu_torch.errors import DeviceError
+from ballista_tpu_torch.utils.locks import make_lock
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -54,7 +56,7 @@ NVCC_FLAGS = [
 # and nowhere else (the plain CPU version is not a launch)
 _launches: Dict[str, int] = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
 
-_build_lock = threading.Lock()
+_build_lock = make_lock("ops.cuda_kernels._build_lock")
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _build_lock
 # per library compiled by this process: the seconds its nvcc took
 _compiled_s: Dict[str, float] = {}  # guarded-by: _build_lock
@@ -83,7 +85,7 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise DeviceError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _sources() -> List[pathlib.Path]:
@@ -130,7 +132,7 @@ def _toolchain() -> Tuple[str, str, str]:
         out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                              timeout=120)
         if out.returncode != 0:
-            raise RuntimeError(f"{nvcc} --version failed: {out.stderr.strip()}")
+            raise DeviceError(f"{nvcc} --version failed: {out.stderr.strip()}")
         major, minor = torch.cuda.get_device_capability()
         _toolchain_cache = (nvcc, out.stdout.strip(), f"{major}.{minor}")
     return _toolchain_cache
@@ -176,17 +178,25 @@ def _compile(jobs: List[Tuple[pathlib.Path, pathlib.Path, str]]) -> List[Tuple[i
     return [(p.returncode, text) for p, text in zip(procs, outs)]
 
 
+def _record_events(events: List[str]) -> None:
+    """Count the kernel-library events a locked section collected, after
+    it released _build_lock (a counter is never taken under it)."""
+    from ballista_tpu_torch.ops.runtime import record_serving
+
+    for event in events:
+        record_serving(event)
+
+
 # holds-lock: _build_lock
-def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
+def _ensure_built_locked(events: List[str],
+                         names: Optional[List[str]] = None) -> Dict[str, dict]:
     """Find or build the library of each source (all of them, or `names`).
-    A library whose key is on disk counts "compile_hit_disk"; the rest are
-    compiled, one nvcc per source started together, each counting
+    A library whose key is on disk adds "compile_hit_disk" to `events`; the
+    rest are compiled, one nvcc per source started together, each adding
     "kernel_built". Returns {name: {"key", "library", "log", "seconds"
     (None when it was on disk)}}; raises with the compiler's output when a
     build fails."""
     import time
-
-    from ballista_tpu_torch.ops.runtime import record_serving
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, version, capability = _toolchain()
@@ -200,7 +210,7 @@ def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
         out[src.stem] = {"key": key, "library": lib, "log": _log_path(src, key),
                          "seconds": None}
         if lib.exists():
-            record_serving("compile_hit_disk")
+            events.append("compile_hit_disk")
         else:
             todo.append((src, key))
     if not todo:
@@ -215,7 +225,7 @@ def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
             continue
         _log_path(src, key).write_text(text)
         os.replace(tmp, _lib_path(src, key))
-        record_serving("kernel_built")
+        events.append("kernel_built")
         out[src.stem]["seconds"] = _compiled_s[src.stem] = time.perf_counter() - t0
         built[key] = {"name": src.stem, "library": _lib_path(src, key).name,
                       "flags": NVCC_FLAGS, "nvcc": version.splitlines()[-1],
@@ -223,7 +233,7 @@ def _ensure_built_locked(names: Optional[List[str]] = None) -> Dict[str, dict]:
     if built:
         _record_manifest(built)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise DeviceError("\n".join(errors))
     return out
 
 
@@ -232,8 +242,12 @@ def build() -> Dict[str, dict]:
     key is on disk). Returns {name: {"seconds": compile seconds, or None
     when it was on disk, "key": the build key, "library": its path,
     "ptxas": per-kernel registers, shared memory and spills}}."""
-    with _build_lock:
-        found = _ensure_built_locked()
+    events: List[str] = []
+    try:
+        with _build_lock:
+            found = _ensure_built_locked(events)
+    finally:
+        _record_events(events)
     return {
         name: {
             "seconds": b["seconds"], "key": b["key"], "library": str(b["library"]),
@@ -260,11 +274,15 @@ def prewarm(config, device=None) -> int:
 
     # the libraries not loaded yet are found or built together (one nvcc per
     # missing source, all started at once), then loaded
-    with _build_lock:
-        loaded = [src.stem for src in _sources() if src.stem not in _libs]
-        found = _ensure_built_locked(loaded)
-        for name in loaded:
-            _load_locked(name, found[name])
+    events: List[str] = []
+    try:
+        with _build_lock:
+            loaded = [src.stem for src in _sources() if src.stem not in _libs]
+            found = _ensure_built_locked(events, loaded)
+            for name in loaded:
+                _load_locked(name, found[name])
+    finally:
+        _record_events(events)
     for src in _sources():
         if src.stem in loaded:
             record_serving("compile_prewarmed")
@@ -320,14 +338,16 @@ def parse_ptxas(text: str) -> List[dict]:
 
 
 def _load(name: str) -> ctypes.CDLL:
-    from ballista_tpu_torch.ops.runtime import record_serving
-
-    with _build_lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            record_serving("compile_hit_memory")
-            return lib
-        return _load_locked(name, _ensure_built_locked([name])[name])
+    events: List[str] = []
+    try:
+        with _build_lock:
+            lib = _libs.get(name)
+            if lib is not None:
+                events.append("compile_hit_memory")
+                return lib
+            return _load_locked(name, _ensure_built_locked(events, [name])[name])
+    finally:
+        _record_events(events)
 
 
 # holds-lock: _build_lock
@@ -335,12 +355,12 @@ def _load_locked(name: str, found: dict) -> ctypes.CDLL:
     """Load and bind the library `found` (an entry of _ensure_built_locked)."""
     path = found["library"]
     if not path.exists():
-        raise RuntimeError(f"kernel library {path} was not built")
+        raise DeviceError(f"kernel library {path} was not built")
     lib = ctypes.CDLL(str(path))
     _bind(name, lib)
     if (name == "sorted_grouped_sum"
             and lib.bt_sorted_grouped_sum_tile_rows() != SORTED_TILE_ROWS):
-        raise RuntimeError(
+        raise DeviceError(
             f"{path}: tile rows {lib.bt_sorted_grouped_sum_tile_rows()} != "
             f"SORTED_TILE_ROWS {SORTED_TILE_ROWS}"
         )
@@ -364,7 +384,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 def _check_launch(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise DeviceError(f"{name}: CUDA launch failed with error {rc}")
 
 
 # -- sorted_grouped_sum -------------------------------------------------------

@@ -574,6 +574,8 @@ class FactAggregateStage:
 
     # holds-lock: self.inner._prepare_lock
     def _sec_side_locked(self, ctx) -> dict:
+        # collects the secondary dimension plan under the lock
+        # may-acquire: group:exec_substrate
         from ballista_tpu_torch.physical.plan import collect_all
 
         sec = self.secondary
@@ -775,6 +777,8 @@ class FactAggregateStage:
 
     # holds-lock: self.inner._prepare_lock
     def _dim_side_locked(self, ctx) -> dict:
+        # collects the dimension plan (joins on the card included) under the lock
+        # may-acquire: group:exec_substrate
         from ballista_tpu_torch.physical.plan import collect_all
 
         table = collect_all(self.dim_plan, ctx)
@@ -805,6 +809,8 @@ class FactAggregateStage:
 
     # holds-lock: self.inner._prepare_lock
     def _prepare_locked(self, partition: int, ctx) -> dict:
+        # executes the fact side's input subtree under the lock
+        # may-acquire: group:exec_substrate
         from ballista_tpu_torch.ops.runtime import entry_device_bytes, reserve_and_pin
 
         if self.secondary is not None:

@@ -40,7 +40,6 @@ and never touches the stage routes of runtime.routing_stats().
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, Optional, Tuple
 
@@ -57,6 +56,7 @@ from ballista_tpu_torch.ops.runtime import (
     routing_probe,
     upload,
 )
+from ballista_tpu_torch.utils.locks import make_lock
 
 _PAD_CODE = np.int32(2**31 - 1)  # sorts last, never matches a valid probe
 
@@ -70,7 +70,7 @@ _BUILD_SWAP_RATIO = 4
 # readbacks made by this module (counts planes and gathers): they are also
 # in runtime.readback_stats(), and a caller that holds a stage's own
 # readbacks to a rule subtracts these
-_readback_lock = threading.Lock()
+_readback_lock = make_lock("ops.join._readback_lock")
 _readbacks = {"rows": 0, "bytes": 0, "readbacks": 0}  # guarded-by: _readback_lock
 
 

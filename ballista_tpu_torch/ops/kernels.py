@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,6 +45,7 @@ from ballista_tpu_torch.ops.runtime import (
     record_routing,
     upload,
 )
+from ballista_tpu_torch.utils.locks import make_lock
 
 
 def host_fallback(reason: str) -> None:
@@ -169,6 +169,9 @@ def _build_stage(exec_node):
             try:
                 alt = FusedAggregateStage(rewritten)
             except UnsupportedOnDevice as e:
+                # the fact stage built above takes the query and records its
+                # route when it runs; step_aside counts this reason apart
+                # cold-path: the decision is the fact stage's route
                 step_aside(f"mapped top-k rewrite: {e}")
             else:
                 if alt.topk is not None:
@@ -186,7 +189,7 @@ def _build_stage(exec_node):
 
 # executor task threads run concurrently: lookup/insert are one atomic
 # section, so two threads never each build (and pin) the same stage
-_stage_cache_lock = threading.Lock()
+_stage_cache_lock = make_lock("ops.kernels._stage_cache_lock")
 _stage_cache: Dict[str, object] = {}  # guarded-by: _stage_cache_lock
 # pins each cached stage's table source so its id() (part of the cache key
 # for memory scans) can never be recycled by a different object

@@ -40,13 +40,13 @@ import json
 import os
 import shutil
 import tempfile
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ballista_tpu_torch.utils.tracing import span
+from ballista_tpu_torch.utils.locks import make_lock
 
 # bump to invalidate every persisted entry of the port
 _FORMAT = 1
@@ -139,7 +139,7 @@ def _dir_bytes(base: str) -> int:
 # O(entries^2) stat traffic as the store fills. It is refreshed with a real
 # walk only when it says the cap is exceeded (other processes' writes are
 # invisible until then: the cap is best-effort)
-_size_lock = threading.Lock()
+_size_lock = make_lock("ops.layout_cache._size_lock")
 _size_cache: Dict[str, int] = {}  # store -> bytes; guarded-by: _size_lock
 
 

@@ -35,7 +35,6 @@ group keys / aggregate inputs / filters may reference them freely
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -56,6 +55,7 @@ from ballista_tpu_torch.physical.plan import (
     collect_all,
 )
 from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils.locks import make_lock
 
 # dim subtrees larger than this are not dimension maps; host joins them.
 # Sized for SF=100 TPC-H: q12/q7 attach the whole orders table (~150M rows,
@@ -148,7 +148,7 @@ class MappedScanExec(ExecutionPlan):
         fields.append(pa.field("__member", pa.int8()))
         self._schema = pa.schema(fields)
         self._maps: Optional[List[dict]] = None  # guarded-by: self._lock
-        self._lock = threading.Lock()
+        self._lock = make_lock("ops.mappedscan._lock")
 
     def schema(self) -> pa.Schema:
         return self._schema

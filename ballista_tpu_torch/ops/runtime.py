@@ -26,6 +26,8 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from ballista_tpu_torch.utils.locks import make_lock
+
 
 class UnsupportedOnDevice(Exception):
     """Raised when a column/expr can't lower to the device path; callers
@@ -43,7 +45,7 @@ class ColumnDictionary:
 
     def __init__(self) -> None:
         self.values: Optional[pa.Array] = None  # distinct values; guarded-by: self._lock
-        self._lock = threading.Lock()
+        self._lock = make_lock("ops.runtime._lock")
 
     def encode(self, arr: pa.Array) -> np.ndarray:
         with self._lock:
@@ -130,7 +132,7 @@ class ScanDictionaries:
 # are evicted to make room (they re-prepare on their next touch); only an
 # entry that cannot fit even after eviction streams (uploaded, run, dropped)
 # per query. A stage the dispatcher drops releases its reservations.
-_res_lock = threading.Lock()
+_res_lock = make_lock("ops.runtime._res_lock")
 _resident_bytes = 0  # guarded-by: _res_lock
 _reservations: Dict[tuple, int] = {}  # (id(stage), partition) -> bytes; guarded-by: _res_lock
 _pinned: Dict[tuple, tuple] = {}  # token -> (stage, partition); guarded-by: _res_lock
@@ -653,7 +655,7 @@ def pipelined_map(src, fn, workers: int, depth: int = 2, on_src_time=None):
 # ingest timings across stage prepares: scan_s = prefetch work (parquet read
 # + dictionary decode + group ranking), encode_s = host narrow/encode,
 # upload_s = h2d enqueue, wall_s = end-to-end prepare.
-_ingest_lock = threading.Lock()
+_ingest_lock = make_lock("ops.runtime._ingest_lock")
 _ingest_totals = {  # guarded-by: _ingest_lock
     "scan_s": 0.0, "encode_s": 0.0, "upload_s": 0.0, "wall_s": 0.0,
     "prepares": 0,
@@ -685,7 +687,7 @@ def ingest_stats(reset: bool = False) -> Dict[str, float]:
 # (chunks prepared fresh), "bytes_reprepared_saved" (host bytes of the
 # reused chunks) and "save_declined_midappend" (a file whose identity moved
 # between the stat and the read was not persisted)
-_delta_lock = threading.Lock()
+_delta_lock = make_lock("ops.runtime._delta_lock")
 _delta: Dict[str, int] = {}  # guarded-by: _delta_lock
 
 
@@ -707,7 +709,7 @@ def delta_stats(reset: bool = False) -> Dict[str, int]:
 # "compile_hit_memory" (the library was loaded in this process),
 # "compile_hit_disk" (a keyed library from the build directory, no nvcc),
 # "compile_prewarmed" (loaded by prewarm) and "kernel_built" (one nvcc run)
-_serving_lock = threading.Lock()
+_serving_lock = make_lock("ops.runtime._serving_lock")
 _serving: Dict[str, int] = {}  # guarded-by: _serving_lock
 
 
@@ -727,7 +729,7 @@ def serving_stats(reset: bool = False) -> Dict[str, int]:
 # device->host result readbacks across stage runs: rows = trailing-axis
 # length of each fetched result (groups), bytes = transfer size, readbacks =
 # transfer count.
-_readback_lock = threading.Lock()
+_readback_lock = make_lock("ops.runtime._readback_lock")
 _readback_totals = {"rows": 0, "bytes": 0, "readbacks": 0}  # guarded-by: _readback_lock
 
 
@@ -785,7 +787,7 @@ def readback_stats(reset: bool = False) -> Dict[str, int]:
 # count beside them. A rung of the stage ladder that steps aside
 # (kernels.step_aside) counts its reason apart from host declines: the next
 # rung may still run the aggregate on the device.
-_routing_lock = threading.Lock()
+_routing_lock = make_lock("ops.runtime._routing_lock")
 _routes: Dict[str, int] = {}  # guarded-by: _routing_lock
 _decline_reasons: Dict[str, int] = {}  # guarded-by: _routing_lock
 _routing_events: Dict[str, int] = {}  # guarded-by: _routing_lock
@@ -929,7 +931,7 @@ def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
 # "step_aside" (the multiplicity / gather admission declined and the host
 # join ran) or "host_fallback" (any other decline). Reasons count verbatim
 # as "path: reason", so a run says why a join left the device.
-_join_lock = threading.Lock()
+_join_lock = make_lock("ops.runtime._join_lock")
 _join_paths: Dict[str, int] = {}  # guarded-by: _join_lock
 _join_reasons: Dict[str, int] = {}  # guarded-by: _join_lock
 
@@ -966,23 +968,23 @@ class _EventCounts:
     the others add n as given (seconds, gauges)."""
 
     def __init__(self, whole: bool = True) -> None:
-        self._lock = threading.Lock()
-        self._counts: Dict[str, float] = {}  # guarded-by: self._lock
+        self._counts_lock = make_lock("ops.runtime._counts_lock")
+        self._counts: Dict[str, float] = {}  # guarded-by: self._counts_lock
         self._whole = whole
 
     def record(self, event: str, n: float = 1) -> None:
-        with self._lock:
+        with self._counts_lock:
             self._counts[event] = self._counts.get(event, 0) + (int(n) if self._whole else n)
 
     def gauge(self, name: str, value: float) -> None:
         """Overwrite a gauge, keeping its `_peak` sibling."""
-        with self._lock:
+        with self._counts_lock:
             self._counts[name] = value
             peak = f"{name}_peak"
             self._counts[peak] = max(self._counts.get(peak, value), value)
 
     def stats(self, reset: bool = False) -> Dict[str, float]:
-        with self._lock:
+        with self._counts_lock:
             out = dict(self._counts)
             if reset:
                 self._counts.clear()

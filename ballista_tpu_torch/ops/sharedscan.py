@@ -326,7 +326,9 @@ def _run_group(members: List[_Member], res: SharedResults) -> None:
             lk.release()
 
 
-# holds-lock: every member stage's _prepare_lock
+# every member stage's prepare lock is held (_run_group takes them in id
+# order), named here by its class for the lock-order graph
+# holds-lock: ops.stage._prepare_lock
 def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
     from ballista_tpu_torch.ops.runtime import (
         bucket_rows,

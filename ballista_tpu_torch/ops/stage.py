@@ -56,13 +56,13 @@ here).
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from ballista_tpu_torch.errors import DeviceError
 from ballista_tpu_torch.ops.runtime import (
     ScanDictionaries,
     UnsupportedOnDevice,
@@ -87,6 +87,7 @@ from ballista_tpu_torch.physical.basic import (
     ProjectionExec,
 )
 from ballista_tpu_torch.physical.scan import CsvScanExec, MemoryScanExec, ParquetScanExec
+from ballista_tpu_torch.utils.locks import make_lock
 
 _SCAN_TYPES = (CsvScanExec, ParquetScanExec, MemoryScanExec)
 
@@ -546,7 +547,7 @@ class FusedAggregateStage:
         # executor task threads can run different partitions of one cached
         # stage concurrently; prepare mutates shared state (the growing
         # ColumnDictionary, narrow choices), so it is serialized
-        self._prepare_lock = threading.Lock()
+        self._prepare_lock = make_lock("ops.stage._prepare_lock")
         # the torch.device this stage's tensors live on (set on first run;
         # the stage cache key includes the device)
         self.device = None
@@ -1707,7 +1708,7 @@ class FusedAggregateStage:
         context without a device, or another device later, is an error
         (never a silent run on the CPU)."""
         if ctx.device is None:
-            raise RuntimeError(
+            raise DeviceError(
                 "device stage run without a device: the TaskContext of the "
                 "cuda backend must name its torch.device"
             )
@@ -1715,7 +1716,7 @@ class FusedAggregateStage:
             if self.device is None:
                 self.device = ctx.device
         if self.device != ctx.device:
-            raise RuntimeError(
+            raise DeviceError(
                 f"stage prepared on {self.device} was run on {ctx.device}"
             )
 
@@ -1761,6 +1762,9 @@ class FusedAggregateStage:
 
     # holds-lock: self._prepare_lock
     def _prepare_fresh(self, partition: int, ctx) -> dict:
+        # executes the stage's input subtree (a mapped scan's dimension
+        # plans, a shuffle reader) under the lock
+        # may-acquire: group:exec_substrate
         """Prepare a partition from its source: the "batches" route, or the
         sorted prepare past MAX_GROUPS. A stage with the fused top-k
         epilogue needs ONE device step over the whole partition (per-batch

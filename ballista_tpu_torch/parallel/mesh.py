@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ballista_tpu_torch.errors import DeviceError
+
 
 class Mesh:
     """Shards in flat order: `devices` (an object array shaped by the axis
@@ -57,7 +59,7 @@ def default_devices(device=None) -> list:
     if device is not None and torch.device(device).type != "cuda":
         return [torch.device(device)]
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceError(
             "build_mesh: CUDA is not available; pass devices= (for example "
             "[torch.device('cpu')] * 4) to build a mesh on the CPU"
         )

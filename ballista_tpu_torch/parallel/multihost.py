@@ -83,6 +83,7 @@ def _allgather_equal(arr: np.ndarray) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(comm_device())
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t)
+    # ballista-lint: disable=readback-discipline -- the collective's own hand-off of host planning scalars (row counts, distinct keys, decline flags), not a result; the JAX package's process_allgather counts none either
     return np.stack([o.cpu().numpy() for o in out])
 
 

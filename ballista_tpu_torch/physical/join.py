@@ -11,7 +11,6 @@ partitioning.
 
 from __future__ import annotations
 
-import threading
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +27,7 @@ from ballista_tpu_torch.physical.plan import (
     collect_all,
     collect_partition,
 )
+from ballista_tpu_torch.utils.locks import make_lock
 
 
 class HashJoinExec(ExecutionPlan):
@@ -57,7 +57,7 @@ class HashJoinExec(ExecutionPlan):
             self._schema = left.schema()
         else:
             self._schema = pa.schema(list(left.schema()) + list(right.schema()))
-        self._build_lock = threading.Lock()
+        self._build_lock = make_lock("physical.join._build_lock")
         self._build_table: Optional[pa.Table] = None  # guarded-by: self._build_lock
 
     def schema(self) -> pa.Schema:
@@ -238,7 +238,7 @@ class CrossJoinExec(ExecutionPlan):
         self.left = left
         self.right = right
         self._schema = pa.schema(list(left.schema()) + list(right.schema()))
-        self._build_lock = threading.Lock()
+        self._build_lock = make_lock("physical.join._build_lock")
         self._build_table: Optional[pa.Table] = None  # guarded-by: self._build_lock
 
     def schema(self) -> pa.Schema:

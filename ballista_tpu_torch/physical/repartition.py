@@ -9,7 +9,6 @@ by the shuffle writer and the TPU all_to_all exchange.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -23,6 +22,7 @@ from ballista_tpu_torch.physical.plan import (
     TaskContext,
     batch_table,
 )
+from ballista_tpu_torch.utils.locks import make_lock
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
@@ -106,7 +106,7 @@ class RepartitionExec(ExecutionPlan):
     def __init__(self, input: ExecutionPlan, partitioning: Partitioning) -> None:
         self.input = input
         self.partitioning = partitioning
-        self._lock = threading.Lock()
+        self._lock = make_lock("physical.repartition._lock")
         self._splits: Optional[List[pa.Table]] = None  # guarded-by: self._lock
 
     def schema(self) -> pa.Schema:

@@ -13,14 +13,14 @@ import pyarrow as pa
 import pyarrow.csv
 import pyarrow.parquet
 
+from ballista_tpu_torch.utils.locks import make_lock
+
 # host decoded-table cache (parquet), capped by total bytes, FIFO-evicted.
 # Keys are (path, mtime, cols); a rewritten file gets a new key and the old
 # entry for the same (path, cols) is dropped eagerly.
-import threading
-
 _TABLE_CACHE: Dict[tuple, pa.Table] = {}  # guarded-by: _TABLE_CACHE_MU
 _TABLE_CACHE_BYTES = [0]  # guarded-by: _TABLE_CACHE_MU
-_TABLE_CACHE_MU = threading.Lock()
+_TABLE_CACHE_MU = make_lock("physical.scan._TABLE_CACHE_MU")
 
 
 def _cache_get(key: tuple) -> Optional[pa.Table]:

@@ -1,10 +1,10 @@
-"""Project lock factory + dynamic lock-order witness (ISSUE 14).
+"""Project lock factory + dynamic lock-order witness.
 
 Every project lock is created through ``make_lock(name)`` / ``make_rlock``
-with its CANONICAL name — the same `<module>.<attr>` identity the static
-analyzer (dev/analysis/rules_lockorder.py) derives, so the runtime and the
-static lock-order graph speak one vocabulary (the analyzer meta-checks the
-literal against the derived name).
+with its CANONICAL name — the same `<module>.<attr>` identity the port's
+static analyzer (ballista_tpu_torch/analysis/rules_lockorder.py) derives,
+so the runtime and the static lock-order graph speak one vocabulary (the
+analyzer meta-checks the literal against the derived name).
 
 Normally a lock is a thin proxy over ``threading.Lock``/``RLock`` whose
 acquire fast-path is one module-global flag check. In **witness mode**
@@ -13,8 +13,8 @@ acquisition is checked against a thread-local stack of held locks:
 
 - each acquired-while-held pair records an edge (with both acquisition
   stacks the first time it is seen);
-- an edge that INVERTS the canonical order declared in
-  dev/analysis/lockorder.toml raises ``LockOrderViolation`` at the moment
+- an edge that INVERTS the canonical order declared in the port's
+  analysis/lockorder.toml raises ``LockOrderViolation`` at the moment
   it happens, naming both locks and carrying both stacks — and is also
   recorded in the dump, so a daemon thread swallowing the raise cannot
   hide it from CI;
@@ -24,7 +24,7 @@ acquisition is checked against a thread-local stack of held locks:
   build locks) may nest.
 
 ``dump()`` writes the observed edges + violations as JSON for
-``python -m dev.analysis --check-witness``: runtime edges the static
+``python -m ballista_tpu_torch.analysis --check-witness``: runtime edges the static
 analyzer missed are analyzer bugs; declared edges never witnessed are
 flagged stale. ``BALLISTA_LOCK_WITNESS_OUT=<path>`` dumps at interpreter
 exit.
@@ -54,7 +54,7 @@ _held = threading.local()  # per-thread stack of _Held entries
 
 class LockOrderViolation(AssertionError):
     """A lock acquisition inverted the canonical order declared in
-    dev/analysis/lockorder.toml, observed as it happened."""
+    ballista_tpu_torch/analysis/lockorder.toml, observed as it happened."""
 
 
 class _Held:
@@ -73,14 +73,12 @@ def _stack() -> str:
 
 
 def _load_manifest() -> Tuple[Dict[str, int], frozenset, frozenset]:
-    """(ranks, instance-tree lock names, plan-tree lock names) from
-    dev/analysis/lockorder.toml; empty when the repo layout (or tomllib) is
-    absent — edges still record, only the declared-order assertion is
-    disarmed."""
+    """(ranks, instance-tree lock names, plan-tree lock names) from the
+    port's own manifest, ballista_tpu_torch/analysis/lockorder.toml;
+    empty when it (or tomllib) is absent — edges still record, only the
+    declared-order assertion is disarmed."""
     try:
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        path = os.path.join(root, "dev", "analysis", "lockorder.toml")
+        path = manifest_path()
         if not os.path.exists(path):
             return {}, frozenset(), frozenset()
         try:
@@ -100,6 +98,12 @@ def _load_manifest() -> Tuple[Dict[str, int], frozenset, frozenset]:
         return ranks, tree, plan
     except Exception:
         return {}, frozenset(), frozenset()
+
+
+def manifest_path() -> str:
+    """The lock-order manifest the witness holds acquisitions to."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(pkg, "analysis", "lockorder.toml")
 
 
 def _held_stack() -> list:

@@ -18,10 +18,12 @@ import threading
 import time
 from typing import Dict, Iterator, List, Tuple
 
+from ballista_tpu_torch.utils.locks import make_lock
+
 _local = threading.local()
 _all_spans: List[Tuple[str, float, int]] = []  # (path, seconds, depth); guarded-by: _mu
 _counters: Dict[str, int] = {}  # guarded-by: _mu
-_mu = threading.Lock()
+_mu = make_lock("utils.tracing._mu")
 
 
 def _stack() -> List[str]:

@@ -245,6 +245,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    as one {"bench": ...} line with each part's seconds; the rows' kernel
    launches count in the kernels line.
 
+15. witness (runs after phase 14, over phase 3's data): the lock witness
+   of ballista_tpu_torch/utils/locks.py armed in this process
+   (locks.enable_witness()) around a StandaloneCluster of two executors on
+   the card, shared scan on, with one seeded executor.death (local-0 dies
+   at one of its first polls): four client threads run q1, q3, q6 and q18,
+   then each q18's inner aggregate under PALLAS (sorted_grouped_sum must
+   launch); then restart_scheduler() on the same store and the same round
+   again. Then the daemons of phase 13 (from this checkout, its kernel
+   libraries already built) start as processes with BALLISTA_LOCK_WITNESS=1
+   and BALLISTA_LOCK_WITNESS_OUT set before import, run q1, q3 and q18's
+   inner aggregate, and stop on SIGINT (each leaves <OUT>.<pid>). Every
+   answer is held to the "cpu" one; the dumps (this process's and one per
+   daemon) merge in `python -m ballista_tpu_torch.analysis --check-witness`.
+   The phase fails if an answer differs, a process saw no edge, a
+   violation was recorded, a runtime edge is missing from the static graph,
+   sorted_grouped_sum launched no time in this process, or the death or the
+   restart was not counted. Printed as one {"witness": ...} line: edges per
+   process, violations, missed and stale declared edges, the number of
+   declared edges no process took, launches (this process's and the
+   daemons'), seconds.
+
 Every phase runs with ballista.tpu.cost_model_dir "" (an in-memory store,
 emptied before each query and shape), so each run starts from the same cold
 routing; phase 8 seeds its store where it says so.
@@ -260,7 +281,7 @@ kernels' launches on phases 6 to 9 are counted and printed (0 expected).
 Prints the {"layout_cache": ...} line of phase 9, the {"distributed": ...}
 line of phase 10, the {"shared_mesh": ...} line of phase 11, the
 {"serving": ...} line of phase 12, the {"daemons": ...} line of phase 13,
-the {"bench": ...} line of phase 14,
+the {"bench": ...} line of phase 14, the {"witness": ...} line of phase 15,
 one {"ptxas": ...,
 "sass_atomics": ...} line (each kernel's
 registers, shared memory and spills from nvcc -Xptxas -v, and the atomic
@@ -3116,6 +3137,226 @@ def phase_bench(data_dir: str, sf: float):
     return record
 
 
+# -- phase 15: the lock witness on the card ------------------------------------
+
+# four concurrent clients, one query each, then each runs q18's inner
+# aggregate (the sorted_grouped_sum route under PALLAS); two rounds, an
+# executor death in the first and a scheduler restart before the second
+WITNESS_QUERIES = ["q1", "q3", "q6", "q18"]
+# the daemons' part: stages of two tasks each, so both executors take work
+WITNESS_DAEMON_QUERIES = ["q1", "q3", "q18_inner"]
+WITNESS_LEASE_S = 5.0
+WITNESS_CLUSTER = {"ballista.debug.lock_witness": "1",
+                   "ballista.shared_scan": "true",
+                   "ballista.chaos.rate": "0.005",
+                   "ballista.chaos.sites": "executor.death",
+                   "ballista.rpc.retries": "20",
+                   "ballista.executor.idle_poll_max_s": "0.25"}
+
+
+def _witness_death_seed() -> int:
+    """A seed at which local-0 dies at one of its polls 4-16 and local-1
+    lives (the scan of tests/test_torch_lockorder.py)."""
+    from ballista_tpu_torch.utils.chaos import ChaosInjector
+
+    for seed in range(2000):
+        inj = ChaosInjector(seed, rate=0.005, sites={"executor.death"})
+
+        def death_poll(eid, horizon):
+            for n in range(1, horizon):
+                if inj.should_inject("executor.death", f"{eid}/poll{n}"):
+                    return n
+            return None
+
+        d0 = death_poll("local-0", 17)
+        if d0 is not None and 4 <= d0 and death_poll("local-1", 400) is None:
+            return seed
+    fail("no executor-death seed in 0..1999")
+
+
+def _witness_rounds(client, answers: dict, errors: list) -> float:
+    """One round: WITNESS_QUERIES from four threads, each client then
+    running q18's inner aggregate, every answer held to the "cpu" one.
+    Returns the round's seconds."""
+    import threading
+
+    def run(name: str) -> None:
+        try:
+            ctx = client()
+            for q in (name, "q18_inner"):
+                sql, extra = _serving_sql(q)
+                if extra:
+                    ctx.close()
+                    ctx = client(extra)
+                _compare(f"{q} (witness)", ctx.sql(sql).collect(), answers[q])
+            ctx.close()
+        except (Exception, SystemExit) as e:  # a failed _compare exits; reported by the phase
+            errors.append(f"{name}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(q,)) for q in WITNESS_QUERIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        errors.append("a witness client is still running after 600 s")
+    return time.perf_counter() - t0
+
+
+def _check_witness(dumps: list) -> dict:
+    """`python -m ballista_tpu_torch.analysis --check-witness` over the
+    merged dumps; returns its JSON report with its exit code."""
+    args = [sys.executable, "-m", "ballista_tpu_torch.analysis", "--json"]
+    for d in dumps:
+        args += ["--check-witness", str(d)]
+    proc = subprocess.run(args, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300)
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"--check-witness printed no report (rc {proc.returncode}): "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    report["rc"] = proc.returncode
+    return report
+
+
+def phase_witness(data_dir: str, answers: dict):
+    """Phase 15 (see the module docstring), over phase 3's data. `answers`
+    maps WITNESS_QUERIES, q18_inner and WITNESS_DAEMON_QUERIES to the "cpu"
+    backend's answer. Returns its record and the kernels' launch counts in
+    this process."""
+    import torch
+
+    from benchmarks.tpch.datagen import register_all
+
+    import ballista_tpu_torch.scheduler.state as state_mod
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.runtime import StandaloneCluster
+    from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
+    from ballista_tpu_torch.utils import locks
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_daemon_cluster import DaemonCluster
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_witness_"))
+    settings = {**BASE, **DIST_SETTINGS,
+                "ballista.tpu.layout_cache_dir": str(work / "layouts")}
+    device = torch.device("cuda")
+    result = {}
+    errors: list = []
+    kernels.clear_stage_cache()
+    runtime.reset_residency()
+    cuda_kernels.reset_launch_counts()
+    runtime.recovery_stats(reset=True)
+    locks.reset_witness()
+    locks.enable_witness()
+    old_lease = state_mod.EXECUTOR_LEASE_SECS
+    state_mod.EXECUTOR_LEASE_SECS = WITNESS_LEASE_S
+    seed = _witness_death_seed()
+    cluster = StandaloneCluster(n_executors=2, device=device, config=BallistaConfig(
+        {**settings, **WITNESS_CLUSTER, "ballista.chaos.seed": str(seed)}))
+    cluster.scheduler_impl.lost_task_check_interval = 0.3
+    try:
+        def client(extra=None):
+            ctx = BallistaContext(*cluster.scheduler_addr,
+                                  settings={**settings, **(extra or {})}, device=device)
+            register_all(ctx, data_dir)
+            return ctx
+
+        result["round1_s"] = _witness_rounds(client, answers, errors)
+        deadline = time.time() + 15
+        while time.time() < deadline and not runtime.recovery_stats().get(
+                "chaos_executor_death"):
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        cluster.restart_scheduler()
+        result["restart_s"] = time.perf_counter() - t0
+        result["round2_s"] = _witness_rounds(client, answers, errors)
+    finally:
+        state_mod.EXECUTOR_LEASE_SECS = old_lease
+        cluster.shutdown()
+        locks.disable_witness()
+        kernels.clear_stage_cache()
+    launches = cuda_kernels.launch_counts()
+    recovery = runtime.recovery_stats(reset=True)
+    violations = locks.witness_violations()
+    record = locks.dump(str(work / "witness.json.in_process"))
+    locks.reset_witness()
+    result.update({"death_seed": seed, "recovery": recovery, "launches": launches,
+                   "in_process_violations": len(violations)})
+    if errors:
+        fail(f"witness: {errors}")
+    if recovery.get("chaos_executor_death", 0) < 1:
+        fail(f"witness: the seeded executor death was not counted: {recovery}")
+    if recovery.get("scheduler_restart", 0) < 1:
+        fail(f"witness: the scheduler restart was not counted: {recovery}")
+    if launches["sorted_grouped_sum"] < 1:
+        fail(f"witness: sorted_grouped_sum never launched: {launches}")
+    edges = {"in_process": len(record["edges"])}
+
+    # the daemons as processes, armed by the environment before import;
+    # SIGINT stops each, and its atexit dump lands at <OUT>.<pid>
+    out = work / "witness.json"
+    daemons = DaemonCluster(str(work / "cluster"), timeout=300)
+    daemons.env.update({"BALLISTA_LOCK_WITNESS": "1",
+                        "BALLISTA_LOCK_WITNESS_OUT": str(out)})
+    daemon_launches = {"sorted_grouped_sum": 0, "grouped_aggregate": 0}
+    try:
+        t0 = time.perf_counter()
+        daemons.start()
+        for name in WITNESS_DAEMON_QUERIES:
+            sql, extra = _serving_sql(name)
+            ctx = BallistaContext(*daemons.scheduler_addr,
+                                  settings={**settings, **extra}, device=device)
+            register_all(ctx, data_dir)
+            _compare(f"{name} (witness daemons)", ctx.sql(sql).collect(), answers[name])
+            ctx.close()
+        for rec in daemons.stop():
+            for k, v in rec["launch_counts"].items():
+                daemon_launches[k] += v
+        pids = {"scheduler": daemons.scheduler.pid,
+                **{ex.name: ex.pid for ex in daemons.executors}}
+        if daemons.scheduler.proc.returncode != 0:
+            fail(f"witness: the scheduler exited with {daemons.scheduler.proc.returncode}")
+        result["daemons_s"] = time.perf_counter() - t0
+    finally:
+        left = [d.name for d in [daemons.scheduler, *daemons.executors] if d and d.alive()]
+        daemons.close()
+    if left:
+        fail(f"witness: daemons left running: {left}")
+    dumps = [work / "witness.json.in_process"]
+    for name, pid in pids.items():
+        path = pathlib.Path(f"{out}.{pid}")
+        if not path.exists():
+            fail(f"witness: {name} (pid {pid}) left no dump at {path}")
+        edges[name] = len(json.loads(path.read_text())["edges"])
+        dumps.append(path)
+    empty = [name for name, n in edges.items() if n == 0]
+    if empty:
+        fail(f"witness: no edges seen in {empty}: {edges}")
+    report = _check_witness(dumps)
+    result.update({
+        "edges": edges, "runtime_edges": report["runtime_edges"],
+        "static_edges": report["static_edges"],
+        "violations": report["violations"], "missed": report["missed"],
+        "stale": report["stale"], "never_witnessed": len(report["never_witnessed"]),
+        "daemon_launches": daemon_launches,
+    })
+    shutil.rmtree(work, ignore_errors=True)
+    if report["violations"]:
+        fail(f"witness: lock-order violations: {report['violations']}")
+    if report["missed"]:
+        fail(f"witness: runtime edges the static graph lacks: {report['missed']}")
+    if report["rc"] != 0 or not report["ok"]:
+        fail(f"witness: --check-witness exited {report['rc']}: {report}")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 (witness): {result['seconds']:.1f} s")
+    return result, launches
+
+
 def _local_record(times: dict) -> dict:
     """A local-engine query record of phases 3, 6 and 7, for phase 10."""
     return {"declines": _host_declines(times, times.get("join_paths", {})),
@@ -3181,6 +3422,9 @@ def main() -> int:
         daemon_times, daemon_launches = phase_daemons(
             data_dir, {name: local_answers[name] for name in DAEMON_QUERIES}, dist_times)
         bench_times = phase_bench(data_dir, args.sf)
+        witness_times, witness_launches = phase_witness(data_dir, {
+            name: local_answers[name]
+            for name in {*WITNESS_QUERIES, *WITNESS_DAEMON_QUERIES, "q18_inner"}})
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     shape_times, shape_launches = phase_join_shapes(args.seed, args.sf)
@@ -3195,7 +3439,8 @@ def main() -> int:
                                  "serving": serving_launches[k["name"]],
                                  "daemons": daemon_launches[k["name"]],
                                  "bench": sum(r["kernel_launches"][k["name"]]
-                                              for r in bench_times["rows"])}
+                                              for r in bench_times["rows"]),
+                                 "witness": witness_launches[k["name"]]}
     print(json.dumps({"queries": times, "joins": join_times, "tpch": tpch_times,
                       "join_shapes": shape_times, "build_s": build_s,
                       "sf": args.sf, "seconds": time.perf_counter() - T0}))
@@ -3205,6 +3450,7 @@ def main() -> int:
     print(json.dumps({"serving": serving_times}))
     print(json.dumps({"daemons": daemon_times}))
     print(json.dumps({"bench": bench_times}))
+    print(json.dumps({"witness": witness_times}))
     print(json.dumps({"ptxas": ptxas, "sass_atomics": sass}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
