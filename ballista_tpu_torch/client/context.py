@@ -30,6 +30,7 @@ from ballista_tpu_torch.logical.builder import LogicalPlanBuilder
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.rpc import SchedulerGrpcClient
 from ballista_tpu_torch.serde.logical import plan_to_proto
+from ballista_tpu_torch.utils import tracing
 
 POLL_INTERVAL = 0.1  # ref context.rs:195
 # status polls start here and double toward POLL_INTERVAL (ISSUE 8): a
@@ -267,7 +268,8 @@ class BallistaContext(ExecutionContext):
         # must not depend on parsing the settings map
         params.tenant = self.config.tenant()
         params.priority = self.config.tenant_priority()
-        return self._client.execute_query(params).job_id
+        with tracing.span("client.submit"):
+            return self._client.execute_query(params).job_id
 
     def collect_stream(self, plan: lp.LogicalPlan, timeout: float = 300.0):
         """Streaming collect (ISSUE 8): yield result RecordBatches in
@@ -523,7 +525,8 @@ class BallistaContext(ExecutionContext):
 
         deadline = time.time() + timeout
         while True:
-            status = self._wait_for_job(job_id, max(0.0, deadline - time.time()))
+            with tracing.query_scope(job_id), tracing.span("client.wait"):
+                status = self._wait_for_job(job_id, max(0.0, deadline - time.time()))
             if status.completed.inline_result:
                 # advanced-entry result (ISSUE 19): the folded table rides
                 # the status inline — nothing to fetch, nothing to lose.
@@ -534,10 +537,11 @@ class BallistaContext(ExecutionContext):
                 ) as r:
                     return r.read_all().cast(schema)
             try:
-                tables = [
-                    self._fetch_partition(loc)
-                    for loc in status.completed.partition_location
-                ]
+                with tracing.query_scope(job_id), tracing.span("client.fetch"):
+                    tables = [
+                        self._fetch_partition(loc)
+                        for loc in status.completed.partition_location
+                    ]
             except ShuffleFetchError as e:
                 cached = status.completed.cached
                 result = self._client.report_lost_partition(

@@ -40,6 +40,7 @@ from ballista_tpu_torch.physical.plan import (
 )
 from ballista_tpu_torch.physical.repartition import hash_rows
 from ballista_tpu_torch.physical.expr import _as_array
+from ballista_tpu_torch.utils import tracing
 
 
 class PartitionStats:
@@ -477,7 +478,8 @@ class ShuffleReaderExec(ExecutionPlan):
         from ballista_tpu_torch.ops.runtime import ordered_map
 
         def fetch(loc: ShuffleLocation) -> List[pa.RecordBatch]:
-            return list(self._read_piece(loc, partition, ctx))
+            with tracing.span("shuffle.fetch"):
+                return list(self._read_piece(loc, partition, ctx))
 
         for piece_batches in ordered_map(
             fetch, self.locations, workers, ctx.config.tpu_ingest_depth()

@@ -25,6 +25,7 @@ from ballista_tpu_torch.logical import plan as lp
 from ballista_tpu_torch.logical.builder import LogicalPlanBuilder
 from ballista_tpu_torch.physical.plan import ExecutionPlan, TaskContext, collect_all
 from ballista_tpu_torch.physical.planner import PhysicalPlanner
+from ballista_tpu_torch.utils import tracing
 
 
 def resolve_device(device=None):
@@ -96,7 +97,8 @@ class ExecutionContext:
     def sql(self, query: str) -> "DataFrame":
         from ballista_tpu_torch.sql.planner import plan_sql
 
-        plan = plan_sql(query, self)
+        with tracing.span("sql"):
+            plan = plan_sql(query, self)
         if isinstance(plan, lp.CreateExternalTable):
             self._create_external_table(plan)
             return DataFrame(self, LogicalPlanBuilder.empty(False))
@@ -128,13 +130,14 @@ class ExecutionContext:
         return planner.create_physical_plan(self.optimize(plan))
 
     def collect(self, plan: lp.LogicalPlan) -> pa.Table:
-        from ballista_tpu_torch.utils.tracing import span
-
-        with span("plan"):
-            physical = self.create_physical_plan(plan)
-        ctx = TaskContext(config=self.config, device=self.device)
-        with span("execute"):
-            return collect_all(physical, ctx)
+        # one query id for the query's spans (a nested collect keeps its
+        # caller's), and no root span: `plan` stays the path `plan`
+        with tracing.query_scope():
+            with tracing.span("plan"):
+                physical = self.create_physical_plan(plan)
+            ctx = TaskContext(config=self.config, device=self.device)
+            with tracing.span("execute"):
+                return collect_all(physical, ctx)
 
 
 class DataFrame:

@@ -41,6 +41,7 @@ from ballista_tpu_torch.executor.flight_service import flight_shuffle_fetcher
 from ballista_tpu_torch.physical.plan import TaskContext
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.rpc import SchedulerGrpcClient
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.executor")
@@ -607,7 +608,8 @@ class PollLoop:
                     time.sleep(delay)
             if shared is not None:
                 ctx.shared_scan = shared
-            stats = plan.execute_shuffle_write(pid.partition_id, ctx)
+            with tracing.span("shuffle.write"):
+                stats = plan.execute_shuffle_write(pid.partition_id, ctx)
             from ballista_tpu_torch.distributed.stages import shuffle_output_base
 
             # the path-home the writer actually used: the shared storage
@@ -658,6 +660,13 @@ class PollLoop:
             status.failed.executor_id = self.metadata.id
 
     def _run_task(self, task: pb.TaskDefinition, slot_held: bool = True) -> None:
+        """_run_dispatch under the job's query id, as the span
+        executor.task: from the task's receipt (a slot wait included) to
+        its last status report."""
+        with tracing.query_scope(task.task_id.job_id), tracing.span("executor.task"):
+            self._run_dispatch(task, slot_held)
+
+    def _run_dispatch(self, task: pb.TaskDefinition, slot_held: bool) -> None:
         """Run one TaskDefinition — or a shared-scan batch group (ISSUE 13:
         the primary plus task.siblings) under ONE task slot. Each member
         gets its own status; a member failing at any point (setup, chaos,

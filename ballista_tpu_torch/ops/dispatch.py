@@ -20,5 +20,7 @@ def device_filter(batch: pa.RecordBatch, predicate, ctx) -> Optional[pa.RecordBa
 
 def device_hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
     from ballista_tpu_torch.ops import kernels
+    from ballista_tpu_torch.utils import tracing
 
-    return kernels.hash_aggregate(exec_node, partition, ctx)
+    with tracing.span("stage.run"):
+        return kernels.hash_aggregate(exec_node, partition, ctx)

@@ -675,14 +675,15 @@ class FactAggregateStage:
         p_col = prim["table"].column(sec["p"]).to_numpy(zero_copy_only=False)
         if not np.issubdtype(p_col.dtype, np.integer):
             raise UnsupportedOnDevice("coupling column must be integer")
-        rank_keys = ent["rank_keys"]
-        pos = np.clip(
-            np.searchsorted(prim["keys_sorted"], rank_keys),
-            0, max(0, len(prim["keys_sorted"]) - 1),
-        )
-        matched = prim["keys_sorted"][pos] == rank_keys
-        p_sorted = p_col[prim["order"]]
-        p_rank = np.where(matched, p_sorted[pos], -1).astype(np.int32)
+        with tracing.span("factagg.rank_search"):
+            rank_keys = ent["rank_keys"]
+            pos = np.clip(
+                np.searchsorted(prim["keys_sorted"], rank_keys),
+                0, max(0, len(prim["keys_sorted"]) - 1),
+            )
+            matched = prim["keys_sorted"][pos] == rank_keys
+            p_sorted = p_col[prim["order"]]
+            p_rank = np.where(matched, p_sorted[pos], -1).astype(np.int32)
 
         dev = self.inner.device
         aux = [upload(np.asarray(a), dev) for a in self.inner.compiler.build_aux()]
@@ -815,7 +816,8 @@ class FactAggregateStage:
 
         if self.secondary is not None:
             self._ensure_sec_map(ctx)  # the derived column needs the map
-        ent = self.inner._prepare_partition_sorted(partition, ctx)
+        with tracing.span("stage.prepare"):
+            ent = self.inner._prepare_partition_sorted(partition, ctx)
         if ent["kind"] == "sorted":
             if not ent["layout"].one_chunk_per_group:
                 raise UnsupportedOnDevice("fact key runs exceed one chunk")
@@ -846,12 +848,13 @@ class FactAggregateStage:
 
     def member_ranks(self, ent: dict, dim: dict) -> Tuple[np.ndarray, np.ndarray]:
         """(fact ranks whose key has a dim row, that dim row per rank)."""
-        rank_keys, rank_order = ent["rank_keys"], ent["rank_order"]
-        sorted_keys = rank_keys[rank_order]
-        pos = np.searchsorted(sorted_keys, dim["keys_sorted"])
-        pos = np.clip(pos, 0, len(sorted_keys) - 1)
-        matched = sorted_keys[pos] == dim["keys_sorted"]
-        return rank_order[pos[matched]], dim["order"][matched]
+        with tracing.span("factagg.rank_search"):
+            rank_keys, rank_order = ent["rank_keys"], ent["rank_order"]
+            sorted_keys = rank_keys[rank_order]
+            pos = np.searchsorted(sorted_keys, dim["keys_sorted"])
+            pos = np.clip(pos, 0, len(sorted_keys) - 1)
+            matched = sorted_keys[pos] == dim["keys_sorted"]
+            return rank_order[pos[matched]], dim["order"][matched]
 
     def _run_primary(self, partition: int, ctx) -> pa.Table:
         dim = self._dim_side(ctx)

@@ -56,6 +56,7 @@ from ballista_tpu_torch.ops.runtime import (
     routing_probe,
     upload,
 )
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 _PAD_CODE = np.int32(2**31 - 1)  # sorts last, never matches a valid probe
@@ -166,7 +167,8 @@ def _run_gather(order, starts, counts, tier: int, np_: int) -> Tuple[np.ndarray,
     from ballista_tpu_torch.ops import costmodel
 
     t0 = time.perf_counter()
-    mat = _readback(gather_matches(order, starts, counts, tier), rows=np_)[:np_]
+    with tracing.span("join.gather"):
+        mat = _readback(gather_matches(order, starts, counts, tier), rows=np_)[:np_]
     dt = time.perf_counter() - t0
     costmodel.observe("join.gather", int(counts.shape[0]) * tier, dt)
     return mat, dt
@@ -175,11 +177,12 @@ def _run_gather(order, starts, counts, tier: int, np_: int) -> Tuple[np.ndarray,
 def _flatten_matched(mat: np.ndarray, counts_h: np.ndarray, np_: int):
     """Host flatten of the gathered plane into probe-major (build, probe)
     selections: the row-major compaction is the run-length scan."""
-    tier = mat.shape[1]
-    keep = np.arange(tier, dtype=np.int32)[None, :] < counts_h[:, None]
-    build_idx = mat[keep].astype(np.int64)
-    probe_idx = np.repeat(np.arange(np_, dtype=np.int64), counts_h)
-    return build_idx, probe_idx
+    with tracing.span("join.flatten"):
+        tier = mat.shape[1]
+        keep = np.arange(tier, dtype=np.int32)[None, :] < counts_h[:, None]
+        build_idx = mat[keep].astype(np.int64)
+        probe_idx = np.repeat(np.arange(np_, dtype=np.int64), counts_h)
+        return build_idx, probe_idx
 
 
 def _within_runs(counts: np.ndarray) -> np.ndarray:

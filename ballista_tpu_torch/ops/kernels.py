@@ -45,6 +45,7 @@ from ballista_tpu_torch.ops.runtime import (
     record_routing,
     upload,
 )
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 
@@ -65,7 +66,6 @@ def step_aside(reason: str) -> None:
     counted apart from host declines (runtime.routing_stats()
     ["step_asides"])."""
     from ballista_tpu_torch.ops.runtime import record_step_aside
-    from ballista_tpu_torch.utils import tracing
 
     tracing.incr("device.step_aside")
     logging.getLogger("ballista.cuda").debug("ladder step-aside: %s", reason)
@@ -365,7 +365,8 @@ def hash_aggregate(exec_node, partition: int, ctx) -> Optional[pa.Table]:
         counted = try_count_left_join(exec_node, partition, ctx)
         if counted is not None:
             return counted
-    stage, key, stable, unit_size = resolve_stage(exec_node, ctx)
+    with tracing.span("stage.resolve"):
+        stage, key, stable, unit_size = resolve_stage(exec_node, ctx)
     if stage is False:
         return None
     try:

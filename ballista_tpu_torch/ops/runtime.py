@@ -18,6 +18,7 @@ is no global device state and no silent move to the CPU.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -26,6 +27,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 
@@ -554,7 +556,8 @@ def _observe_h2d(chunk, event, t0: float) -> None:
 def ordered_map(fn, items, workers: int, depth: int = 2):
     """Concurrent map over a finite, independent item list, yielding
     results in input order with at most `depth` in flight. workers <= 0 (or
-    a single item) degenerates to the serial loop."""
+    a single item) degenerates to the serial loop. Each call of `fn` runs in
+    a copy of the caller's context, so its spans carry the query id."""
     items = list(items)
     if workers <= 0 or len(items) <= 1:
         for it in items:
@@ -570,7 +573,7 @@ def ordered_map(fn, items, workers: int, depth: int = 2):
     try:
         while pending or i < len(items):
             while i < len(items) and len(pending) < inflight:
-                pending.append(ex.submit(fn, items[i]))
+                pending.append(ex.submit(contextvars.copy_context().run, fn, items[i]))
                 i += 1
             yield pending.popleft().result()
     finally:
@@ -586,7 +589,8 @@ def pipelined_map(src, fn, workers: int, depth: int = 2, on_src_time=None):
     `depth` results ahead. Exceptions from `src` or `fn` re-raise at the
     consumption point in order. `on_src_time(seconds)` is called from the
     reader thread with each pull's duration. workers <= 0 degenerates to
-    the serial in-thread map."""
+    the serial in-thread map. The reader and each call of `fn` run in a
+    copy of the caller's context, so their spans carry the query id."""
     if workers <= 0:
         it = iter(src)
         while True:
@@ -627,13 +631,14 @@ def pipelined_map(src, fn, workers: int, depth: int = 2, on_src_time=None):
             if on_src_time is not None:
                 on_src_time(time.perf_counter() - t0)
             try:
-                out_q.put(("fut", ex.submit(fn, item)))
+                out_q.put(("fut", ex.submit(contextvars.copy_context().run, fn, item)))
             except RuntimeError:
                 # the consumer exited early and shut the pool down
                 return
         out_q.put(done)
 
-    reader = threading.Thread(target=_reader, name="ingest-reader", daemon=True)
+    reader = threading.Thread(target=contextvars.copy_context().run, args=(_reader,),
+                              name="ingest-reader", daemon=True)
     reader.start()
     try:
         while True:
@@ -750,13 +755,14 @@ def readback(x, rows: Optional[int] = None) -> np.ndarray:
     from ballista_tpu_torch.ops import costmodel
 
     t0 = None
-    if costmodel.enabled():
-        if x.device.type == "cuda":
-            import torch
+    with tracing.span("readback"):
+        if costmodel.enabled():
+            if x.device.type == "cuda":
+                import torch
 
-            torch.cuda.current_stream(x.device).synchronize()
-        t0 = time.perf_counter()
-    arr = x.detach().cpu().numpy()
+                torch.cuda.current_stream(x.device).synchronize()
+            t0 = time.perf_counter()
+        arr = x.detach().cpu().numpy()
     if t0 is not None and arr.nbytes:
         costmodel.observe("readback", arr.nbytes, time.perf_counter() - t0)
     record_readback(
@@ -872,8 +878,6 @@ def record_decline_trace(counter: str, message: str) -> None:
         probe.buf.append(("trace", (counter, message)))
         return
     import logging
-
-    from ballista_tpu_torch.utils import tracing
 
     tracing.incr(counter)
     logging.getLogger("ballista.cuda").debug("%s", message)

@@ -87,6 +87,7 @@ from ballista_tpu_torch.physical.basic import (
     ProjectionExec,
 )
 from ballista_tpu_torch.physical.scan import CsvScanExec, MemoryScanExec, ParquetScanExec
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 _SCAN_TYPES = (CsvScanExec, ParquetScanExec, MemoryScanExec)
@@ -1747,7 +1748,8 @@ class FusedAggregateStage:
                     # before it learns the cardinality it declines on)
                     prepared = self._load_layout(partition, ctx)
                     if prepared is None:
-                        prepared = self._prepare_fresh(partition, ctx)
+                        with tracing.span("stage.prepare"):
+                            prepared = self._prepare_fresh(partition, ctx)
                     if use_cache:
                         # pin within the budget (a disk-loaded entry too);
                         # past it the partition streams per query

@@ -16,6 +16,7 @@ import pyarrow as pa
 
 from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.errors import PlanError
+from ballista_tpu_torch.utils import tracing
 
 
 class Partitioning:
@@ -131,8 +132,11 @@ class ExecutionPlan:
 def collect_partition(
     plan: ExecutionPlan, partition: int, ctx: TaskContext
 ) -> pa.Table:
-    """Drain one partition into a Table (reference utils.rs collect_stream)."""
-    batches = list(plan.execute(partition, ctx))
+    """Drain one partition into a Table (reference utils.rs collect_stream).
+    Timed as the span `op.<class>`: the self time of a drained operator is
+    its own host work and that of the generators it pulls through."""
+    with tracing.span(f"op.{type(plan).__name__}"):
+        batches = list(plan.execute(partition, ctx))
     if not batches:
         return pa.table(
             {f.name: pa.array([], type=f.type) for f in plan.schema()},

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import grpc
 
 from ballista_tpu_torch.config import BallistaConfig
-from ballista_tpu_torch.distributed.planner import DistributedPlanner
+from ballista_tpu_torch.distributed.planner import DistributedPlanner, find_unresolved_shuffles
 from ballista_tpu_torch.engine.context import ExecutionContext
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.kv import KvBackend, MemoryBackend
@@ -36,6 +36,7 @@ from ballista_tpu_torch.scheduler.rpc import DRAINING_METADATA, add_scheduler_se
 from ballista_tpu_torch.scheduler.state import SchedulerState
 from ballista_tpu_torch.serde.arrow import schema_to_ipc
 from ballista_tpu_torch.serde.logical import plan_from_proto
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.scheduler")
@@ -434,6 +435,7 @@ class SchedulerServer:
 
     # -- RPC implementations ------------------------------------------------
     def ExecuteQuery(self, request: pb.ExecuteQueryParams, context=None) -> pb.ExecuteQueryResult:
+        received_ns = time.perf_counter_ns()
         self._refuse_if_crashed(context)
         from ballista_tpu_torch.executor.confine import (
             check_proto_scan_roots,
@@ -512,6 +514,8 @@ class SchedulerServer:
             record_tenancy("cache_unkeyable")
 
         job_id = _job_id()
+        # scheduler.job: from this receipt to the job's final status
+        tracing.mark(("job", job_id), at=received_ns)
         if fp is not None and config.result_cache():
             # result-cache lookup + job publish under the global lock so a
             # concurrent completion's cache put cannot interleave
@@ -885,30 +889,49 @@ class SchedulerServer:
     def _plan_job(
         self, job_id: str, plan, config, attempt: int = 0, content_key=None
     ) -> None:
-        physical = self._physical_plan(plan, config, content_key)
-        stages = DistributedPlanner(config).plan_query_stages(job_id, physical)
-        # all-or-nothing publish: stage plans, pending tasks, and the
-        # queued->running flip land in ONE KV batch, so a crash mid-plan
-        # leaves no torn job (the job stays queued with no planning keys
-        # and recover() fails it cleanly on restart)
-        batch = self.state.stage_job_plan(job_id, attempt)
-        for stage in stages:
-            batch.add_stage_plan(stage.stage_id, stage)
-            n = stage.output_partitioning().partition_count()
-            for p in range(n):
-                batch.add_pending_task(stage.stage_id, p)
-        if self.crashed:
-            # last fence before the publish (narrow in-process race left:
-            # real restarts are separate processes where the dead
-            # scheduler's threads cannot write at all)
-            raise RuntimeError("scheduler crashed during planning")
-        batch.commit()
+        with tracing.query_scope(job_id), tracing.span("scheduler.plan"):
+            physical = self._physical_plan(plan, config, content_key)
+            stages = DistributedPlanner(config).plan_query_stages(job_id, physical)
+            # all-or-nothing publish: stage plans, pending tasks, and the
+            # queued->running flip land in ONE KV batch, so a crash mid-plan
+            # leaves no torn job (the job stays queued with no planning keys
+            # and recover() fails it cleanly on restart)
+            batch = self.state.stage_job_plan(job_id, attempt)
+            for stage in stages:
+                batch.add_stage_plan(stage.stage_id, stage)
+                n = stage.output_partitioning().partition_count()
+                for p in range(n):
+                    batch.add_pending_task(stage.stage_id, p)
+            if self.crashed:
+                # last fence before the publish (narrow in-process race left:
+                # real restarts are separate processes where the dead
+                # scheduler's threads cannot write at all)
+                raise RuntimeError("scheduler crashed during planning")
+            tracing.mark(("planned", job_id))  # a start of scheduler.task_wait
+            batch.commit()
         log.info("job %s planned into %d stages", job_id, len(stages))
         # the whole point of push dispatch: the job's first tasks leave for
         # subscribed executors the moment planning commits, not after the
         # next PollWork round-trip
         with self.state.kv.lock():
             self._pump_pushes()
+
+    def _note_task_wait(self, status: pb.TaskStatus) -> None:
+        """scheduler.task_wait: from the moment the task became runnable
+        (its job's plan commit, its own requeue or the last completion in
+        an upstream stage, whichever came last) to this hand-out."""
+        if not tracing.recording():
+            return
+        pid = status.partition_id
+        plan = self.state.get_stage_plan(pid.job_id, pid.stage_id)
+        keys = [("planned", pid.job_id),
+                ("task", pid.job_id, pid.stage_id, pid.partition_id)]
+        keys += [("stage", pid.job_id, u.stage_id)
+                 for u in (find_unresolved_shuffles(plan) if plan is not None else [])]
+        starts = [t for t in map(tracing.marked, keys) if t is not None]
+        if starts:
+            tracing.record_interval("scheduler.task_wait", max(starts),
+                                    time.perf_counter_ns(), query=pid.job_id)
 
     # -- push dispatch (ISSUE 8) --------------------------------------------
     def _task_definition(self, status: pb.TaskStatus, plan) -> pb.TaskDefinition:
@@ -962,7 +985,9 @@ class SchedulerServer:
         SubscribeJobStatus streams — one push per TRANSITION: a re-write
         byte-identical to the last pushed status is suppressed. Each
         subscriber gets its own copy (the caller may keep mutating the
-        message)."""
+        message). A final status closes the job's scheduler.job interval."""
+        if status.WhichOneof("status") in ("completed", "failed"):
+            tracing.since("scheduler.job", ("job", job_id), query=job_id)
         with self._status_mu:
             qs = list(self._status_subs.get(job_id, ()))
             if not qs:
@@ -1153,6 +1178,8 @@ class SchedulerServer:
                 break
             td = self._task_definition(status, plan)
             td.speculative = speculative
+            if not speculative:
+                self._note_task_wait(status)
             sub.outstanding.add(
                 (pid.job_id, pid.stage_id, pid.partition_id, status.attempt)
             )
@@ -1416,6 +1443,7 @@ class SchedulerServer:
                     result.task.CopyFrom(self._task_definition(status, plan))
                     result.task.speculative = speculative
                     if not speculative:
+                        self._note_task_wait(status)
                         # scan-sharing pass (ISSUE 13): batch co-pending
                         # compatible stages of other jobs onto this reply
                         for st2, plan2 in self.state.form_shared_batch(

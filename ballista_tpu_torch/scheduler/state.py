@@ -74,6 +74,7 @@ from ballista_tpu_torch.distributed.stages import (
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.kv import KvBackend
 from ballista_tpu_torch.serde.physical import phys_plan_from_proto, phys_plan_to_proto
+from ballista_tpu_torch.utils import tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.scheduler")
@@ -1637,6 +1638,13 @@ class SchedulerState:
             return False
         if self._task_index is not None:
             self._task_index.observe(status)
+        # the starts of scheduler.task_wait (SchedulerServer._note_task_wait):
+        # a requeued task, and the latest completion in its stage
+        w = status.WhichOneof("status")
+        if w is None:
+            tracing.mark(("task", pid.job_id, pid.stage_id, pid.partition_id))
+        elif w == "completed":
+            tracing.mark(("stage", pid.job_id, pid.stage_id))
         return True
 
     def accept_task_status(self, status: pb.TaskStatus) -> bool:

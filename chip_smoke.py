@@ -134,7 +134,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shared_scan_stats, and the phase's seconds, as one {"distributed": ...}
    line. The cluster shuts down in a finally; an error still fails the run.
 
-11. shared scan, mesh stages and the device span (runs after phase 10,
+11. shared scan, mesh stages and the span export (runs after phase 10,
    over phase 3's data). Shared scan: the four SHARED_QUERIES (distinct
    "batches"-route aggregates over lineitem: three with only counts,
    integer sums and min / max, one with an f32 sum) run one at a time
@@ -155,9 +155,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the mesh and equal the one-shard answers (non-float columns exactly,
    floats under phase 3's tolerance). The demos of parallel/spmd.py (q1's
    step and the all_to_all exchange) run over lineitem's columns on the
-   four-shard mesh against a float64 numpy reference. Last, one span with
-   device=True under a temporary BALLISTA_TRACE_DIR around a q6 run must
-   leave one trace naming a CUDA kernel. Each device program of the slice
+   four-shard mesh against a float64 numpy reference. Last, a q6 run with
+   span recording on, exported as BALLISTA_TRACE_DIR's Chrome trace, must
+   hold the run's stage.run and readback spans. Each device program of the slice
    (the shared-scan combined step, the unrolled, sorted and join mesh
    programs, the two demos) is timed warm on its last captured call
    (device ms as in phase 4) beside its byte bound and the number of
@@ -293,6 +293,7 @@ nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import shutil
@@ -1557,6 +1558,19 @@ def residency_runs(make_ctx):
     return runs, sizes, budget
 
 
+@contextlib.contextmanager
+def _spans_on():
+    """Span recording on over the body (it is off by default): for the
+    phases that read tracing.spans()."""
+    from ballista_tpu_torch.utils import tracing
+
+    tracing.enable(True)
+    try:
+        yield
+    finally:
+        tracing.enable(False)
+
+
 def _store_span_ms() -> dict:
     """Milliseconds in the store's spans since the last tracing reset:
     {"layout_cache.load": reads (and misses), "layout_cache.save": writes}."""
@@ -1908,7 +1922,7 @@ def phase_distributed(data_dir: str, local: dict, local_answers: dict,
     return result, launches
 
 
-# -- phase 11: shared scan, the mesh stages and the device span --------------
+# -- phase 11: shared scan, the mesh stages and the span export --------------
 
 # distinct "batches"-route aggregates over lineitem for one shared-scan batch:
 # the first three have only counts, integer sums and min / max (the combined
@@ -2269,9 +2283,10 @@ def _demos_part(data_dir: str) -> dict:
     return out
 
 
-def _device_span_part(data_dir: str) -> dict:
-    """One span with device=True under a temporary BALLISTA_TRACE_DIR around
-    a q6 run on the card: the trace it leaves must name a CUDA kernel."""
+def _span_export_part(data_dir: str) -> dict:
+    """A q6 run on the card with span recording on, exported as the Chrome
+    trace that BALLISTA_TRACE_DIR names: it must hold the run's stage.run
+    and readback spans, under the query id of its execute span."""
     import os
 
     from benchmarks.tpch.datagen import register_all
@@ -2286,24 +2301,25 @@ def _device_span_part(data_dir: str) -> dict:
     try:
         ctx = ExecutionContext(BallistaConfig(BASE))
         register_all(ctx, data_dir)
-        with tracing.span("chip_smoke.q6", device=True):
+        tracing.reset()
+        with _spans_on():
             ctx.sql((ROOT / "benchmarks/tpch/queries/q6.sql").read_text()).collect()
-        files = sorted(pathlib.Path(trace_dir).glob("*.json"))
-        if len(files) != 1:
-            fail(f"device span: {len(files)} trace files in {trace_dir}")
-        events = json.loads(files[0].read_text()).get("traceEvents", [])
-        kernels = sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
-        if not kernels:
-            fail("device span: the trace names no CUDA kernel")
-        out = {"trace_bytes": files[0].stat().st_size, "cuda_kernels": len(kernels),
-               "examples": kernels[:3]}
+        path = pathlib.Path(tracing.export())
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        (query,) = {e["args"]["query"] for e in events if e["name"] == "execute"} or {None}
+        names = sorted({e["name"] for e in events if e["args"]["query"] == query})
+        for want in ("stage.run", "readback"):
+            if query is None or want not in names:
+                fail(f"span export: the q6 run's {want} span is not in {path.name}: {names}")
+        out = {"trace_bytes": path.stat().st_size, "spans": len(events), "names": names}
     finally:
         if prev is None:
             os.environ.pop("BALLISTA_TRACE_DIR", None)
         else:
             os.environ["BALLISTA_TRACE_DIR"] = prev
         shutil.rmtree(trace_dir, ignore_errors=True)
-    log(f"phase 11 device span: {out}")
+        tracing.reset()
+    log(f"phase 11 span export: {out}")
     return out
 
 
@@ -2322,7 +2338,7 @@ def phase_shared_mesh(data_dir: str, local_answers: dict, dist: dict):
         result["mesh4"] = _mesh4_part(data_dir, one_shard)
         result["demos"] = _demos_part(data_dir)
         launches = cuda_kernels.launch_counts()
-        result["device_span"] = _device_span_part(data_dir)
+        result["span_export"] = _span_export_part(data_dir)
     finally:
         restore()
         kernels.clear_stage_cache()
@@ -2334,7 +2350,7 @@ def phase_shared_mesh(data_dir: str, local_answers: dict, dist: dict):
     for rec in result["programs"]:
         log(f"phase 11 program: {rec}")
     result["seconds"] = time.perf_counter() - t_phase
-    log(f"phase 11 (shared scan, mesh stages, device span): {result['seconds']:.1f} s")
+    log(f"phase 11 (shared scan, mesh stages, span export): {result['seconds']:.1f} s")
     return result, launches
 
 
@@ -3383,7 +3399,8 @@ def main() -> int:
     from ballista_tpu_torch.ops import cuda_kernels
 
     if args.layout_child:
-        return layout_child(args.layout_child)
+        with _spans_on():
+            return layout_child(args.layout_child)
 
     build_s, ptxas, libraries = phase_build()
     sass = _sass_atomics(libraries)
@@ -3398,10 +3415,12 @@ def main() -> int:
                                 previous.get("sorted_grouped_sum"))
         kernels.append(phase_grouped_aggregate(args.seed, launches,
                                                previous.get("grouped_aggregate")))
-        join_times, join_launches, join_answers = phase_joins(data_dir)
+        with _spans_on():  # phase 6 reads the dim side's spans
+            join_times, join_launches, join_answers = phase_joins(data_dir)
         tpch_times, tpch_launches, tpch_answers = phase_tpch(data_dir)
         cuda_kernels.reset_launch_counts()
-        layout_times = phase_layout_cache(data_dir)
+        with _spans_on():  # phase 9 reads the store's spans
+            layout_times = phase_layout_cache(data_dir)
         layout_launches = cuda_kernels.launch_counts()
         # phase 10 holds the cluster to the local engine's records of
         # phases 3, 6 and 7, and reuses their "cpu" answers
