@@ -12,8 +12,8 @@ package's ops/factagg.py ported to PyTorch:
   host      dim side of the join (small) executes as-is; its join-key
             column must be unique (checked) -> the join attaches at most
             one dim row per fact row, so aggregates distribute over the
-            join. Build a per-rank membership vector over the fact table's
-            sorted-key layout.
+            join. Its sorted keys go to the device, where each query
+            matches every fact rank's key against them (match_ranks).
   device    one step over the resident fact layout: fused filters +
             per-key partial aggregates (ops/stage.py sorted_step), masked by
             membership, and — when the planner annotated a Sort+Limit
@@ -84,9 +84,9 @@ from ballista_tpu_torch.utils import tracing
 
 # dim sides larger than this are not "dimension tables"; let the host join
 # handle them. The ceiling is host-side cost only (one cached collect +
-# sort + unique check; the device never sees dim rows, just fact-rank
-# membership bits), sized for SF=100 TPC-H dim shapes: q3's filtered
-# customer x orders side is ~15M rows, q10's window ~6M.
+# sort + unique check; the device holds just the sorted dim keys and their
+# rows for the rank match), sized for SF=100 TPC-H dim shapes: q3's
+# filtered customer x orders side is ~15M rows, q10's window ~6M.
 MAX_DIM_ROWS = 32_000_000
 
 # the non-topk member-select epilogue reads back one column per member and
@@ -130,6 +130,32 @@ def _columns_of(e: px.PhysicalExpr, acc: List[int]) -> None:
     for w, t in getattr(e, "when_then", []) or []:
         _columns_of(w, acc)
         _columns_of(t, acc)
+
+
+def int64_keys(keys: np.ndarray) -> Optional[np.ndarray]:
+    """Join keys widened to int64 for the device rank match, or None where
+    int64 cannot hold them in order (strings, dates, floats, uint64): those
+    keys take the host search (member_ranks)."""
+    kind, size = keys.dtype.kind, keys.dtype.itemsize
+    if kind == "i" or (kind == "u" and size < 8):
+        return keys.astype(np.int64, copy=False)
+    return None
+
+
+def match_ranks(rank_keys, dim_keys, dim_order):
+    """The rank match on the stage's device, for every fact rank: (matched,
+    pos, dim_row): whether its key has a dim row, its position among the
+    sorted dim keys (clamped) and that dim row, -1 where unmatched. All
+    three are int64 tensors but `matched`; exact, and the same match as
+    member_ranks, since both key sides are unique."""
+    import torch
+
+    if dim_keys.numel() == 0:
+        matched = torch.zeros(rank_keys.shape, dtype=torch.bool, device=rank_keys.device)
+        return matched, torch.zeros_like(rank_keys), torch.full_like(rank_keys, -1)
+    pos = torch.searchsorted(dim_keys, rank_keys).clamp_(max=dim_keys.numel() - 1)
+    matched = dim_keys[pos] == rank_keys
+    return matched, pos, torch.where(matched, dim_order[pos], -1)
 
 
 def top_k_indices(x, k: int):
@@ -671,24 +697,27 @@ class FactAggregateStage:
             or prim["table"].num_rows == 0
         ):
             return self.partial_schema.empty_table()
+        import torch
+
         # per-rank coupling value from the primary side (-1 = no match)
         p_col = prim["table"].column(sec["p"]).to_numpy(zero_copy_only=False)
         if not np.issubdtype(p_col.dtype, np.integer):
             raise UnsupportedOnDevice("coupling column must be integer")
-        with tracing.span("factagg.rank_search"):
-            rank_keys = ent["rank_keys"]
-            pos = np.clip(
-                np.searchsorted(prim["keys_sorted"], rank_keys),
-                0, max(0, len(prim["keys_sorted"]) - 1),
-            )
-            matched = prim["keys_sorted"][pos] == rank_keys
-            p_sorted = p_col[prim["order"]]
-            p_rank = np.where(matched, p_sorted[pos], -1).astype(np.int32)
-
         dev = self.inner.device
+        with tracing.span("factagg.rank_search"):
+            match = self._device_match(ent, prim)
+            if match is not None:
+                matched, pos, _ = match
+                p_rank = torch.where(matched, prim["p_sorted_dev"][pos], -1).to(torch.int32)
+            else:
+                ranks, dim_rows = self.member_ranks(ent, prim)
+                p_host = np.full(len(ent["rank_keys"]), -1, dtype=np.int32)
+                p_host[ranks] = p_col[dim_rows]
+                p_rank = upload(p_host, dev)
+
         aux = [upload(np.asarray(a), dev) for a in self.inner.compiler.build_aux()]
         rows = self._decode(readback(
-            self._step_sec(ent, aux, upload(p_rank, dev), info["allowed"])
+            self._step_sec(ent, aux, p_rank, info["allowed"])
         ))
         counts = rows[0]
         keep = counts > 0
@@ -729,31 +758,29 @@ class FactAggregateStage:
         TOPK_POOL, 4k for larger k, at most 2^16, at most the groups."""
         return min(min(max(4 * self.topk["k"], TOPK_POOL), 1 << 16), n_groups)
 
-    def step_topk(self, ent: dict, aux, member_bits):
-        """The JAX package's step_topk: the sorted step, member bits
-        unpacked (np.packbits(..., bitorder="little") on the host), valid =
-        member & counts > 0, the score row ranked as f32 (int sums cast, as
-        the reference does) and the two-stage block top-k. Returns ONE int32
-        [R + 3, kk] tensor: the selected packed rows, the masked score's f32
-        bits, the group index and the valid flag."""
+    def step_topk(self, ent: dict, aux, dim_row):
+        """The JAX package's step_topk: the sorted step, valid = member &
+        counts > 0 (a member rank has a dim row: dim_row >= 0, the JAX
+        package's member bits), the score row ranked as f32 (int sums cast,
+        as the reference does) and the two-stage block top-k. Returns ONE
+        int32 [R + 4, kk] tensor: the selected packed rows, the masked
+        score's f32 bits, the group index, the valid flag and the dim row."""
         import torch
 
         inner = self.inner
         rows = inner.sorted_step(ent["layout"].L1, ent["cols"], aux, ent["clen"])
-        G = rows[0].shape[0]
-        shifts = torch.arange(8, dtype=torch.uint8, device=member_bits.device)
-        member = ((member_bits[:, None] >> shifts) & 1).reshape(-1)[:G]
-        valid = torch.logical_and(member > 0, rows[0] > 0)
+        valid = torch.logical_and(dim_row >= 0, rows[0] > 0)
         score = rows[self._score_row()].to(torch.float32)
         if not self.topk["descending"]:
             score = -score
         masked = torch.where(valid, score, float("-inf"))
-        idx = two_stage_top_k(masked, self.pool_size(G))
+        idx = two_stage_top_k(masked, self.pool_size(masked.shape[0]))
         return torch.cat([
             inner._pack_rows(rows)[:, idx],
             masked[idx].view(torch.int32)[None, :],
             idx.to(torch.int32)[None, :],
             valid[idx].to(torch.int32)[None, :],
+            dim_row[idx].to(torch.int32)[None, :],
         ])
 
     def step_select(self, ent: dict, aux, positions):
@@ -794,6 +821,17 @@ class FactAggregateStage:
             raise UnsupportedOnDevice("dim join key not unique")
         order = np.argsort(kn, kind="stable")
         out = {"table": table, "keys_sorted": kn[order], "order": order}
+        keys64 = int64_keys(out["keys_sorted"])
+        if keys64 is not None:
+            # the rank match's dim side on the card (_device_match), and a
+            # secondary stage's coupling column in the same sorted order
+            dev = self.inner.device
+            out["keys_dev"] = upload(keys64, dev)
+            out["order_dev"] = upload(order.astype(np.int64, copy=False), dev)
+            if self.secondary is not None:
+                p = table.column(self.secondary["p"]).to_numpy(zero_copy_only=False)
+                if np.issubdtype(p.dtype, np.integer):
+                    out["p_sorted_dev"] = upload(p[order].astype(np.int64), dev)
         if ctx.config.device_cache():
             self._dim_cache = out
         return out
@@ -825,7 +863,13 @@ class FactAggregateStage:
             kv_np = (kv.to_numpy(zero_copy_only=False)
                      if isinstance(kv, (pa.Array, pa.ChunkedArray)) else np.asarray(kv))
             ent["rank_keys"] = kv_np
-            ent["rank_order"] = np.argsort(kv_np, kind="stable")
+            keys64 = int64_keys(kv_np)
+            if keys64 is not None:
+                # resident beside the tiles (counted, pinned and evicted
+                # with them): each query's rank match runs on the card
+                ent["rank_keys_dev"] = upload(keys64, self.inner.device)
+            else:
+                ent["rank_order"] = np.argsort(kv_np, kind="stable")
         if ctx.config.device_cache():
             # ballista.tpu.device_cache=false: recompute per query instead
             # of pinning the [V, L1] tiles. Pinned entries count against
@@ -847,16 +891,32 @@ class FactAggregateStage:
         return out
 
     def member_ranks(self, ent: dict, dim: dict) -> Tuple[np.ndarray, np.ndarray]:
-        """(fact ranks whose key has a dim row, that dim row per rank)."""
-        with tracing.span("factagg.rank_search"):
-            rank_keys, rank_order = ent["rank_keys"], ent["rank_order"]
-            sorted_keys = rank_keys[rank_order]
-            pos = np.searchsorted(sorted_keys, dim["keys_sorted"])
-            pos = np.clip(pos, 0, len(sorted_keys) - 1)
-            matched = sorted_keys[pos] == dim["keys_sorted"]
-            return rank_order[pos[matched]], dim["order"][matched]
+        """The host search: (fact ranks whose key has a dim row, in key
+        order, and that dim row per rank). It runs where a key side is not
+        integer (_device_match), and is the device match's oracle."""
+        rank_keys = ent["rank_keys"]
+        rank_order = ent.get("rank_order")
+        if rank_order is None:
+            rank_order = np.argsort(rank_keys, kind="stable")
+        sorted_keys = rank_keys[rank_order]
+        pos = np.searchsorted(sorted_keys, dim["keys_sorted"])
+        pos = np.clip(pos, 0, len(sorted_keys) - 1)
+        matched = sorted_keys[pos] == dim["keys_sorted"]
+        return rank_order[pos[matched]], dim["order"][matched]
+
+    def _device_match(self, ent: dict, dim: dict):
+        """match_ranks over the resident fact and dim keys, or None (the
+        host search runs) where either side's keys are not integers.
+        Counted once per partition run, by the path taken."""
+        if "rank_keys_dev" not in ent or "keys_dev" not in dim:
+            tracing.incr("factagg.rank_match.host")
+            return None
+        tracing.incr("factagg.rank_match.device")
+        return match_ranks(ent["rank_keys_dev"], dim["keys_dev"], dim["order_dev"])
 
     def _run_primary(self, partition: int, ctx) -> pa.Table:
+        import torch
+
         dim = self._dim_side(ctx)
         if self.topk is None and dim["table"].num_rows > MAX_SELECT_MEMBERS:
             # members <= dim rows: decline BEFORE prepare pays the fact
@@ -865,15 +925,26 @@ class FactAggregateStage:
         ent = self._prepare(partition, ctx)
         if ent["kind"] == "empty" or dim["table"].num_rows == 0:
             return self.partial_schema.empty_table()
-        member_ranks, dim_rows_for_rank = self.member_ranks(ent, dim)
         dev = self.inner.device
+        with tracing.span("factagg.rank_search"):
+            match = self._device_match(ent, dim)
+            if match is None:
+                ranks, dim_rows = self.member_ranks(ent, dim)
+            elif self.topk is None:
+                matched, pos, dim_row = match
+                ranks = torch.nonzero(matched).squeeze(1)
+                # member_ranks' order: by key, which is by dim position
+                ranks = ranks[torch.argsort(pos[ranks])]
+                dim_rows = dim_row[ranks]
         aux = [upload(np.asarray(a), dev) for a in self.inner.compiler.build_aux()]
-        G = ent["n_groups"]
         if self.topk is not None:
-            member = np.zeros(G, dtype=bool)
-            member[member_ranks] = True
-            bits = upload(np.packbits(member, bitorder="little"), dev)
-            packed = readback(self.step_topk(ent, aux, bits))
+            if match is not None:
+                dim_row = match[2]
+            else:
+                rank_to_dim = np.full(ent["n_groups"], -1, dtype=np.int64)
+                rank_to_dim[ranks] = dim_rows
+                dim_row = upload(rank_to_dim, dev)
+            packed = readback(self.step_topk(ent, aux, dim_row))
             n_rows = len(self.inner._int_rows)
             valid = packed[n_rows + 2] > 0
             sel = packed[:n_rows][:, valid]
@@ -903,23 +974,28 @@ class FactAggregateStage:
                 and tie_val <= scores[-1]
             ):
                 raise UnsupportedOnDevice("top-k tie at candidate boundary")
-            # map selected ranks back to dim rows
-            rank_to_dim = np.full(G, -1, dtype=np.int64)
-            rank_to_dim[member_ranks] = dim_rows_for_rank
-            return self._assemble(sel, idx, rank_to_dim[idx], dim["table"], ent)
-        positions = member_ranks.astype(np.int64)
-        if len(positions) == 0:
+            dim_idx = packed[n_rows + 3].astype(np.int64)[valid]
+            return self._assemble(sel, idx, dim_idx, dim["table"], ent)
+        if ranks.shape[0] == 0:
             return self.partial_schema.empty_table()
-        if len(positions) > MAX_SELECT_MEMBERS:
+        if ranks.shape[0] > MAX_SELECT_MEMBERS:
             # the non-topk epilogue reads back [state_rows, members]: past
             # this the transfer and host re-group cost more than the host
             # path; decline
             raise UnsupportedOnDevice("member-select readback too large")
-        sel = readback(self.step_select(ent, aux, upload(positions, dev)))
-        rows = self._decode(sel)
+        if match is None:
+            ranks, dim_rows = upload(ranks.astype(np.int64), dev), upload(dim_rows, dev)
+        # one readback: the member rows, then their ranks and dim rows
+        packed = readback(torch.cat([
+            self.step_select(ent, aux, ranks),
+            ranks.to(torch.int32)[None, :],
+            dim_rows.to(torch.int32)[None, :],
+        ]))
+        ranks, dim_rows = packed[-2].astype(np.int64), packed[-1].astype(np.int64)
+        rows = self._decode(packed[:-2])
         keep = rows[0] > 0
         return self._assemble_decoded(
-            [r[keep] for r in rows], positions[keep], dim_rows_for_rank[keep],
+            [r[keep] for r in rows], ranks[keep], dim_rows[keep],
             dim["table"], ent,
         )
 

@@ -86,6 +86,12 @@ def prepared_from_reference(entry: dict, device) -> dict:
         for name in ("rank_keys", "rank_order"):
             if name in entry:
                 out[name] = np.asarray(entry[name])
+        if "rank_keys" in entry:
+            from ballista_tpu_torch.ops.factagg import int64_keys
+
+            keys64 = int64_keys(out["rank_keys"])
+            if keys64 is not None:
+                out["rank_keys_dev"] = upload(keys64, device)
         return out
     if kind == "pallas_sorted":
         return {

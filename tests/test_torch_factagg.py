@@ -593,10 +593,13 @@ def test_step_topk_on_reference_entry(star):
     carried = prepared_from_reference(entry, CPU)
     assert carried["rank_keys"].tolist() == entry["rank_keys"].tolist()
     dim = jstage._dim_cache
-    member_ranks, _ = pstage.member_ranks(carried, dim)
+    member_ranks, dim_rows = pstage.member_ranks(carried, dim)
     member = np.zeros(entry["n_groups"], dtype=bool)
     member[member_ranks] = True
     bits = np.packbits(member, bitorder="little")
+    # the port's step takes the dim row per rank (-1: not a member)
+    rank_to_dim = np.full(entry["n_groups"], -1, dtype=np.int64)
+    rank_to_dim[member_ranks] = dim_rows
 
     jaux = [jnp.asarray(a) for a in jstage.inner.compiler.build_aux()]
     jpacked = np.asarray(jstage._fact_step(
@@ -607,11 +610,12 @@ def test_step_topk_on_reference_entry(star):
     jrows = jstage._decode(jpacked[:-4])
 
     paux = [upload(np.asarray(a), CPU) for a in pstage.inner.compiler.build_aux()]
-    ppacked = pstage.step_topk(carried, paux, torch.from_numpy(bits)).numpy()
+    ppacked = pstage.step_topk(carried, paux, torch.from_numpy(rank_to_dim)).numpy()
     n_rows = len(pstage.inner._int_rows)
-    assert ppacked.shape == (n_rows + 3, pstage.pool_size(entry["n_groups"]))
+    assert ppacked.shape == (n_rows + 4, pstage.pool_size(entry["n_groups"]))
     assert ppacked[n_rows + 1].tolist() == jidx.tolist()
     assert (ppacked[n_rows + 2] > 0).tolist() == jvalid.tolist()
+    assert ppacked[n_rows + 3].tolist() == rank_to_dim[jidx].tolist()
     np.testing.assert_allclose(ppacked[n_rows].view(np.float32), jpacked[-4], rtol=2e-5)
     _assert_rows(pstage._decode(ppacked[:n_rows]), jrows, pstage.inner._int_rows)
 
@@ -673,3 +677,191 @@ def test_secondary_entry_carries_derived_tiles(coupled_star):
     ptable = pstage.run(0, TaskContext(config=pctx.config, device=CPU))
     assert ptable.schema == jtable.schema
     _assert_same(jtable.sort_by("nat_name"), ptable.sort_by("nat_name"))
+
+
+# -- the rank match on the stage's device against the host search ------------
+
+def _keys(case, rng):
+    """(fact rank keys, dim keys in table order) for one parity case."""
+    big = rng.choice(np.arange(-(1 << 40), 1 << 40, 7919), 6000, replace=False)
+    if case == "int64_random":
+        return big[:4000], rng.permutation(np.concatenate([big[1000:3000], big[4000:5000]]))
+    if case == "int32_fact_int64_dim":
+        keys = rng.choice(1 << 30, 3000, replace=False)
+        return keys.astype(np.int32), rng.permutation(keys[::3]).astype(np.int64)
+    if case == "negative":
+        keys = rng.permutation(np.arange(-2500, 2500))
+        return keys[:3000], rng.permutation(keys[1500:4500])
+    if case == "empty_dim":
+        return big[:4000], np.array([], dtype=np.int64)
+    if case == "no_match":
+        return big[:3000], big[3000:]
+    assert case == "all_match"
+    return big[:3000], rng.permutation(big)
+
+
+@pytest.mark.parametrize("case", ["int64_random", "int32_fact_int64_dim", "negative",
+                                  "empty_dim", "no_match", "all_match"])
+def test_device_match_is_bit_equal_to_host_search(case):
+    """match_ranks on tensors against member_ranks (the host search) for the
+    match mask and the dim row per rank, and against the secondary stage's
+    former host search (rank keys into the sorted dim keys) for the
+    coupling value per rank, -1 where unmatched."""
+    from ballista_tpu_torch.ops.factagg import FactAggregateStage, int64_keys, match_ranks
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rank_keys, dim_keys = _keys(case, rng)
+    order = np.argsort(dim_keys, kind="stable")
+    dim = {"keys_sorted": dim_keys[order], "order": order}
+    p = rng.integers(0, 25, len(dim_keys)).astype(np.int64)  # coupling column
+
+    ranks, dim_rows = FactAggregateStage.member_ranks(None, {"rank_keys": rank_keys}, dim)
+    want_mask = np.zeros(len(rank_keys), dtype=bool)
+    want_mask[ranks] = True
+    want_row = np.full(len(rank_keys), -1, dtype=np.int64)
+    want_row[ranks] = dim_rows
+    want_p = np.full(len(rank_keys), -1, dtype=np.int32)
+    if len(dim_keys):
+        ks = dim["keys_sorted"]
+        pos = np.clip(np.searchsorted(ks, rank_keys), 0, len(ks) - 1)
+        want_p = np.where(ks[pos] == rank_keys, p[order][pos], -1).astype(np.int32)
+
+    matched, pos, dim_row = match_ranks(
+        torch.from_numpy(int64_keys(rank_keys)),
+        torch.from_numpy(int64_keys(dim["keys_sorted"])),
+        torch.from_numpy(order.astype(np.int64)),
+    )
+    # the secondary stage returns before its match on an empty dim side
+    p_rank = (torch.where(matched, torch.from_numpy(p[order])[pos], -1).to(torch.int32)
+              if len(dim_keys) else torch.full(matched.shape, -1, dtype=torch.int32))
+    assert matched.numpy().tolist() == want_mask.tolist()
+    assert dim_row.numpy().tolist() == want_row.tolist()
+    assert p_rank.numpy().tolist() == want_p.tolist()
+    members = int(want_mask.sum())  # each case holds what its name says
+    if case in ("empty_dim", "no_match"):
+        assert members == 0
+    elif case == "all_match":
+        assert members == len(rank_keys)
+    else:
+        assert 0 < members < len(rank_keys)
+
+
+@pytest.mark.parametrize("values,admitted", [
+    (np.array([3, -1], dtype=np.int64), True),
+    (np.array([3, 1], dtype=np.int32), True),
+    (np.array([3, 1], dtype=np.uint32), True),
+    (np.array([3, 1], dtype=np.uint64), False),
+    (np.array(["a", "b"], dtype=object), False),
+    (np.array([3.0, 1.0]), False),
+    (np.array(["2020-01-01", "2021-01-01"], dtype="datetime64[D]"), False),
+])
+def test_int64_keys_admits_integers_int64_orders(values, admitted):
+    from ballista_tpu_torch.ops.factagg import int64_keys
+
+    out = int64_keys(values)
+    assert (out is not None) == admitted
+    if admitted:
+        assert out.dtype == np.int64 and out.tolist() == values.tolist()
+
+
+def _port_stage(paths, sql):
+    """The port's FactAggregateStage of the query's plan, and a task context."""
+    from ballista_tpu_torch.ops.factagg import FactAggregateStage
+    from ballista_tpu_torch.physical.plan import TaskContext
+
+    _fresh()
+    pctx = ExecutionContext(BallistaConfig({}), device="cpu")
+    for name, p in paths.items():
+        pctx.register_parquet(name, p)
+    stage = FactAggregateStage(_find_agg(pctx.create_physical_plan(pctx.sql(sql).logical_plan())))
+    return stage, TaskContext(config=pctx.config, device=CPU)
+
+
+def _match_counts():
+    from ballista_tpu_torch.utils import tracing
+
+    c = tracing.counters()
+    return c.get("factagg.rank_match.device", 0), c.get("factagg.rank_match.host", 0)
+
+
+@pytest.mark.parametrize("fixture,sql,route", [
+    ("star", Q_TOPK, "fact_topk"),
+    ("star", Q_FULL, "fact_select"),
+    ("coupled_star", Q_COUPLED, "fact_secondary"),
+], ids=["topk", "select", "secondary"])
+def test_device_match_equals_host_search_through_the_stage(request, fixture, sql, route):
+    """One partition run with the rank keys resident (the device match),
+    then one with them taken away (the host search): equal partial tables,
+    one count on each counter."""
+    stage, tctx = _port_stage(request.getfixturevalue(fixture), sql)
+    assert stage.route == route
+    dev0, host0 = _match_counts()
+    on_device = stage.run(0, tctx)
+    ent = stage._prepared[0]
+    assert ent["rank_keys_dev"].dtype == torch.int64
+    assert ent["rank_keys_dev"].tolist() == ent["rank_keys"].tolist()
+    assert "rank_order" not in ent  # the host search's sort, computed only for it
+    assert _match_counts() == (dev0 + 1, host0)
+    del ent["rank_keys_dev"]
+    on_host = stage.run(0, tctx)
+    assert _match_counts() == (dev0 + 1, host0 + 1)
+    assert on_device.num_rows > 0
+    assert on_device.equals(on_host)
+
+
+@pytest.mark.parametrize("limit", ["", "order by s desc limit 10"], ids=["select", "topk"])
+def test_string_keys_take_the_host_search(tmp_path, limit):
+    """String join keys are not matched on the device: the host search
+    runs, counted once, and the answer is the JAX package's."""
+    rng = np.random.default_rng(23)
+    nf, nk = 6000, 800
+    fact = pa.table({"fk": pa.array([f"k{v:04d}" for v in rng.integers(0, nk, nf)]),
+                     "amount": pa.array(np.round(rng.uniform(1, 100, nf), 2))})
+    dim = pa.table({"dk": pa.array([f"k{i:04d}" for i in range(0, nk, 2)]),
+                    "attr": pa.array([f"a{i % 13}" for i in range(0, nk, 2)])})
+    paths = {"fact": _write(tmp_path, "fact", fact), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select fk, sum(amount) as s, attr from dim, fact where dk = fk "
+           f"group by fk, attr {limit or 'order by fk'}")
+    dev0, host0 = _match_counts()
+    jout, jst, pout, pst, routing, _ = _run_both(paths, sql)
+    assert pst == jst == [("fact", "topk" if limit else "select")]
+    assert "host" not in routing["routes"]
+    assert _match_counts() == (dev0, host0 + 1)
+    _assert_same(jout, pout)
+
+
+@pytest.mark.parametrize("fixture,sql", [("star", Q_TOPK), ("star", Q_FULL),
+                                         ("coupled_star", Q_COUPLED)],
+                         ids=["topk", "select", "secondary"])
+def test_device_match_counts_each_partition_run(request, fixture, sql):
+    """Integer keys: every partition run matches again on the device (the
+    warm runs too: no match is kept across runs), one count each, and no
+    host search; the answers of the runs are equal."""
+    stage, tctx = _port_stage(request.getfixturevalue(fixture), sql)
+    dev0, host0 = _match_counts()
+    outs = [stage.run(0, tctx) for _ in range(3)]
+    assert _match_counts() == (dev0 + 3, host0)
+    assert outs[0].equals(outs[1]) and outs[0].equals(outs[2])
+
+
+def test_rank_keys_are_resident_with_the_entry(star):
+    """The resident rank keys count in the pinned entry's device bytes (8
+    bytes a rank), and an evicted entry gives them back."""
+    from ballista_tpu_torch.ops import runtime as rt
+
+    stage, tctx = _port_stage(star, Q_TOPK)
+    rt.reset_residency()
+    stage.run(0, tctx)
+    ent = stage._prepared[0]
+    ranks = len(ent["rank_keys"])
+    nbytes = rt.entry_device_bytes(ent)
+    without = rt.entry_device_bytes({k: v for k, v in ent.items() if k != "rank_keys_dev"})
+    assert nbytes - without == 8 * ranks
+    assert rt.resident_bytes() == nbytes
+    # another stage's pin of the same size under a budget for one evicts it
+    other = type("Other", (), {"_device_cache": {}})()
+    assert rt.reserve_and_pin(other, 0, {}, other._device_cache, nbytes, nbytes)
+    assert stage._prepared == {}
+    assert rt.residency_stats()["evictions"] >= 1
+    assert rt.resident_bytes() == nbytes
+    rt.release_stage_residency(other)
