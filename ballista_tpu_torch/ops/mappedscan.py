@@ -47,6 +47,7 @@ from ballista_tpu_torch.physical.basic import (
     FilterExec,
     MergeExec,
     ProjectionExec,
+    coalesce_batches,
 )
 from ballista_tpu_torch.physical.plan import (
     ExecutionPlan,
@@ -259,10 +260,18 @@ class MappedScanExec(ExecutionPlan):
         return maps
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
+        """The fact's batches merged up to the context's batch size, then
+        extended: a selective filter below the join yields many small
+        batches, and the device stage runs one step per batch it stages
+        (DataFusion coalesces a filter's output the same way). A batch that
+        already fills the batch size passes through as it is."""
         maps = self._ensure_maps(ctx)
-        for batch in self.fact.execute(partition, ctx):
-            if batch.num_rows:
-                yield self._extend(batch, maps)
+        merged = coalesce_batches(
+            _counted(self.fact.execute(partition, ctx)), ctx.batch_size
+        )
+        for batch in merged:
+            tracing.incr("mappedscan.batches_out")
+            yield self._extend(batch, maps)
 
     def _extend(self, batch: pa.RecordBatch, maps: List[dict]) -> pa.RecordBatch:
         n = batch.num_rows
@@ -318,6 +327,12 @@ class MappedScanExec(ExecutionPlan):
                 by_name[f.name] = arr
         arrays.append(pa.array(member.astype(np.int8)))
         return pa.record_batch(arrays, schema=self._schema)
+
+
+def _counted(batches: Iterator[pa.RecordBatch]) -> Iterator[pa.RecordBatch]:
+    for batch in batches:
+        tracing.incr("mappedscan.batches_in")
+        yield batch
 
 
 def _pack_dim_keys(key_vals: List[np.ndarray]):

@@ -201,21 +201,38 @@ class CoalesceBatchesExec(ExecutionPlan):
         return CoalesceBatchesExec(children[0], self.target_batch_size)
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
-        buf: List[pa.RecordBatch] = []
-        rows = 0
-        for batch in self.input.execute(partition, ctx):
-            buf.append(batch)
-            rows += batch.num_rows
-            if rows >= self.target_batch_size:
-                table = pa.Table.from_batches(buf, schema=self.schema())
-                yield from batch_table(table, self.target_batch_size)
-                buf, rows = [], 0
-        if buf:
-            table = pa.Table.from_batches(buf, schema=self.schema())
-            yield from batch_table(table, self.target_batch_size)
+        yield from coalesce_batches(self.input.execute(partition, ctx), self.target_batch_size)
 
     def fmt(self) -> str:
         return f"CoalesceBatchesExec: target={self.target_batch_size}"
+
+
+def coalesce_batches(
+    batches: Iterator[pa.RecordBatch], target: int
+) -> Iterator[pa.RecordBatch]:
+    """Re-chunk a stream into batches of exactly `target` rows and one last,
+    shorter batch: the rows past a full batch carry into the next, so n rows
+    come out as ceil(n / target) batches. Empty batches are dropped; a batch
+    of exactly `target` rows that meets an empty buffer passes through."""
+    buf: List[pa.RecordBatch] = []
+    rows = 0
+    for batch in batches:
+        if not batch.num_rows:
+            continue
+        buf.append(batch)
+        rows += batch.num_rows
+        if rows < target:
+            continue
+        merged = pa.Table.from_batches(buf)
+        off = 0
+        while rows - off >= target:
+            # combine_chunks leaves a column of one chunk as it is
+            yield from merged.slice(off, target).combine_chunks().to_batches()
+            off += target
+        buf = [b for b in merged.slice(off).to_batches() if b.num_rows]
+        rows -= off
+    if buf:
+        yield from pa.Table.from_batches(buf).combine_chunks().to_batches()
 
 
 class MergeExec(ExecutionPlan):

@@ -54,8 +54,9 @@ def _stages(cache):
     return sorted(out)
 
 
-def _run_both(paths, sql):
-    """(JAX result, JAX stages, port result, port stages, port routing)."""
+def _run_both(paths, sql, settings=None):
+    """(JAX result, JAX stages, port result, port stages, port routing);
+    `settings` go to both packages' configurations."""
     from ballista_tpu.ops import kernels as jk
     from ballista_tpu_torch.ops import kernels as tk
     from ballista_tpu_torch.ops import runtime as tr
@@ -63,10 +64,11 @@ def _run_both(paths, sql):
     _fresh()
     # the reference run needs no AOT disk tier: exporting each traced
     # program to .ballista_cache/aot was a large share of its time
+    settings = dict(settings or {})
     jctx = JaxContext(JaxConfig({"ballista.executor.backend": "tpu",
-                                 "ballista.tpu.aot_cache": ""}))
-    pctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cuda"}),
-                            device="cpu")
+                                 "ballista.tpu.aot_cache": "", **settings}))
+    pctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cuda",
+                                            **settings}), device="cpu")
     for name, p in paths.items():
         jctx.register_parquet(name, p)
         pctx.register_parquet(name, p)
@@ -345,3 +347,201 @@ def test_ladder_final_verdict_is_the_only_host_route(tmp_path):
         "factagg admission: string aggregate input": 1
     }
     _assert_same(jout, pout, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the mapped fact's filtered batches merge up to the batch size before the
+# extend: a selective filter below the join yields many small batches, and
+# the "batches" route stages one entry per batch it is handed
+# ---------------------------------------------------------------------------
+
+
+def _grouped_fact(tmp_path, n=30_000, row_group=2_000, n_dim=800, seed=11,
+                  null_every=0):
+    """A fact of n / row_group row groups (one scan batch each) over `_star`'s
+    dim; `null_every` > 0 makes every such row's join key null."""
+    rng = np.random.default_rng(seed)
+    fk = rng.integers(0, n_dim + 50, n)
+    fact = pa.table({
+        "fk": pa.array(fk, type=pa.int64(),
+                       mask=(np.arange(n) % null_every == 0) if null_every else None),
+        "mode": pa.array([f"m{i % 5}" for i in range(n)]),
+        "amount": pa.array(rng.uniform(0, 100, n)),
+    })
+    p = tmp_path / "fact_rg.parquet"
+    pq.write_table(fact, str(p), row_group_size=row_group)
+    _fp, dp, _rp, _ = _star(tmp_path, n_dim=n_dim)
+    return str(p), dp, fact
+
+
+def _mapped_entries(cache):
+    """{partition: [rows of each staged entry]} of the port's mapped
+    "batches" stage."""
+    out = {}
+    for s in cache.values():
+        if s in (None, False) or type(getattr(s, "scan", None)).__name__ != "MappedScanExec":
+            continue
+        for part, prep in s._device_cache.items():
+            assert prep["kind"] == "batches"
+            out[part] = [int(e["row_valid"].sum()) for e in prep["entries"]]
+    return out
+
+
+def _merge_counts(run):
+    from ballista_tpu_torch.utils import tracing
+
+    before = tracing.counters()
+    out = run()
+    after = tracing.counters()
+    return out, {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("mappedscan.batches_in", "mappedscan.batches_out")}
+
+
+Q_FILTERED = """
+    select mode,
+           sum(case when prio = 'p0' then 1 else 0 end) as c0,
+           count(*) as c,
+           sum(amount) as s
+    from dim, fact
+    where dk = fk and amount < {cut}
+    group by mode
+    order by mode
+"""
+
+
+def test_filtered_fact_batches_merge_into_one_entry(tmp_path):
+    """15 row groups and a filter that keeps about 3 % of the rows: the
+    port's mapped stage stages one entry for its driven partition (the JAX
+    package one per batch), and the answer is the JAX package's."""
+    from ballista_tpu_torch.ops import kernels as tk
+
+    fp, dp, fact = _grouped_fact(tmp_path)
+    (jout, jst, pout, pst, routing), counts = _merge_counts(
+        lambda: _run_both({"fact": fp, "dim": dp}, Q_FILTERED.format(cut=3)))
+    assert pst == jst == MAPPED_BATCHES
+    assert routing["routes"] == {"batches": 1}
+    entries = _mapped_entries(tk._stage_cache)
+    kept = int((fact.column("amount").to_numpy() < 3).sum())
+    assert entries == {0: [kept]}
+    assert counts == {"mappedscan.batches_in": 15, "mappedscan.batches_out": 1}
+    _assert_same(jout, pout, 1e-4)
+
+
+@pytest.mark.parametrize("batch_size,cut", [(1000, 20), (2500, 40), (777, 10)])
+def test_merged_batches_stop_at_the_batch_size(tmp_path, batch_size, cut):
+    """With `ballista.batch.size` below the filtered row count, the rows
+    merge into ceil(rows / batch_size) entries, none past the batch size,
+    all full but the last."""
+    from ballista_tpu_torch.ops import kernels as tk
+
+    fp, dp, fact = _grouped_fact(tmp_path)
+    (jout, jst, pout, pst, _), counts = _merge_counts(
+        lambda: _run_both({"fact": fp, "dim": dp}, Q_FILTERED.format(cut=cut),
+                          {"ballista.batch.size": str(batch_size)}))
+    assert pst == jst == MAPPED_BATCHES
+    kept = int((fact.column("amount").to_numpy() < cut).sum())
+    assert kept > batch_size
+    entries = _mapped_entries(tk._stage_cache)
+    n = -(-kept // batch_size)
+    assert entries == {0: [batch_size] * (n - 1) + [kept - batch_size * (n - 1)]}
+    assert counts["mappedscan.batches_out"] == n
+    assert counts["mappedscan.batches_in"] > n
+    _assert_same(jout, pout, 1e-4)
+
+
+def test_filter_that_keeps_no_row_gives_the_empty_answer(tmp_path):
+    fp, dp, _ = _grouped_fact(tmp_path)
+    (jout, jst, pout, pst, _), counts = _merge_counts(
+        lambda: _run_both({"fact": fp, "dim": dp}, Q_FILTERED.format(cut=-1)))
+    assert pst == jst
+    assert pout.num_rows == jout.num_rows == 0
+    assert pout.column_names == jout.column_names
+    assert counts["mappedscan.batches_out"] == 0
+
+
+def test_merged_batch_past_max_groups_takes_the_sorted_route(tmp_path):
+    """Each row group holds 500 distinct group keys, the merged batch about
+    2,900: the port's stage raises past MAX_GROUPS (1024) and prepares the
+    sorted layout, and gives the host path's answer (and the JAX package's,
+    which stays on its per-batch route)."""
+    from ballista_tpu_torch.ops import runtime as tr
+    from ballista_tpu_torch.ops.stage import MAX_GROUPS
+
+    rng = np.random.default_rng(5)
+    n, n_dim = 6_000, 300
+    fact = pa.table({
+        "fk": pa.array(rng.integers(0, n_dim, n), type=pa.int64()),
+        "g": pa.array(np.arange(n) // 2, type=pa.int64()),
+        "amount": pa.array(rng.uniform(0, 100, n)),
+    })
+    fp = tmp_path / "fact_groups.parquet"
+    pq.write_table(fact, str(fp), row_group_size=1_000)
+    dim = pa.table({"dk": pa.array(np.arange(n_dim), type=pa.int64()),
+                    "prio": pa.array([f"p{i % 3}" for i in range(n_dim)])})
+    paths = {"fact": str(fp), "dim": _write(tmp_path, "dim", dim)}
+    sql = ("select g, sum(case when prio = 'p0' then 1 else 0 end) as c0,"
+           " sum(amount) as s from dim, fact where dk = fk and amount < 50"
+           " group by g order by g")
+    jout, jst, pout, pst, routing = _run_both(paths, sql)
+    assert pout.num_rows > MAX_GROUPS
+    assert pst == [("MappedScanExec", ("sorted",), False)]
+    assert jst == MAPPED_BATCHES
+    assert routing["routes"] == {"sorted": 1}
+    hctx = ExecutionContext(BallistaConfig({"ballista.executor.backend": "cpu"}),
+                            device="cpu")
+    for name, p in paths.items():
+        hctx.register_parquet(name, p)
+    hout = hctx.sql(sql).collect()
+    assert tr.routing_stats(reset=True)["routes"] == {}
+    _assert_same(hout, pout, 1e-4)
+    _assert_same(jout, pout, 1e-4)
+
+
+@pytest.mark.parametrize("op", ["in", "exists"])
+def test_semi_membership_over_merged_batches(tmp_path, op):
+    """A membership-only attachment over merged batches: a fact row counts
+    where its key is on the membership side, and a null fact key never
+    matches; duplicate and null keys on the membership side change
+    nothing."""
+    fp, _dp, fact = _grouped_fact(tmp_path, null_every=7)
+    sub = pa.table({"sk": pa.array(list(range(0, 850, 3)) * 2 + [None],
+                                   type=pa.int64())})
+    paths = {"fact": fp, "sub": _write(tmp_path, "sub", sub)}
+    where = ("fk in (select sk from sub where sk is not null)" if op == "in"
+             else "exists (select 1 from sub where sk = fk)")
+    sql = ("select mode, count(*) as c, sum(amount) as s from fact "
+           f"where amount < 5 and {where} group by mode order by mode")
+    (jout, jst, pout, pst, _), counts = _merge_counts(lambda: _run_both(paths, sql))
+    assert pst == jst == MAPPED_BATCHES
+    assert counts == {"mappedscan.batches_in": 15, "mappedscan.batches_out": 1}
+    fk = fact.column("fk").to_numpy(zero_copy_only=False)
+    amount = fact.column("amount").to_numpy()
+    keep = (amount < 5) & ~np.isnan(fk) & (np.nan_to_num(fk) % 3 == 0)
+    modes = np.array(fact.column("mode").to_pylist())
+    expect = [int((keep & (modes == m)).sum()) for m in sorted(set(modes[keep]))]
+    assert pout.column("c").to_pylist() == expect
+    _assert_same(jout, pout, 1e-4)
+
+
+@pytest.mark.parametrize("sizes,target,expect", [
+    ([0, 300, 800, 1000, 50], 1000, [1000, 1000, 150]),
+    ([2500], 1000, [1000, 1000, 500]),
+    ([1000, 1000], 1000, [1000, 1000]),
+    ([10, 20], 1000, [30]),
+    ([0, 0], 1000, []),
+])
+def test_coalesce_batches_carries_the_rows_past_a_full_batch(sizes, target, expect):
+    """The port's coalescing (ballista_tpu_torch/physical/basic.py) keeps row
+    order, and a batch of the target size that meets an empty buffer keeps
+    its buffers."""
+    from ballista_tpu_torch.physical.basic import coalesce_batches
+
+    start = np.cumsum([0] + sizes)
+    batches = [pa.record_batch({"v": pa.array(np.arange(a, a + k), type=pa.int64())})
+               for a, k in zip(start, sizes)]
+    out = list(coalesce_batches(iter(batches), target))
+    assert [b.num_rows for b in out] == expect
+    values = [v for b in out for v in b.column(0).to_pylist()]
+    assert values == list(range(sum(sizes)))
+    if sizes[0] == target:
+        assert out[0].column(0).buffers()[1].address == batches[0].column(0).buffers()[1].address
