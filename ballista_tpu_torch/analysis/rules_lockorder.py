@@ -147,32 +147,24 @@ def _creations(sf: SourceFile) -> List[_Creation]:
     return out
 
 
-def _method_aliases(sf: SourceFile) -> List[Tuple[str, str, int]]:
-    """(alias, method, line) for each module-level bind of a module-level
-    instance's bound method (`record_recovery = _recovery.record`, tuple
-    unpacking included), where the instance's class is defined in this
-    module: a call to the alias is a call to the method."""
-    classes = {n.name for n in sf.tree.body if isinstance(n, ast.ClassDef)}
-    instances: Set[str] = set()
-    binds = [n for n in sf.tree.body if isinstance(n, ast.Assign)]
-    for node in binds:
-        if isinstance(node.value, ast.Call) \
-                and final_name(node.value.func) in classes:
-            instances.update(t.id for t in node.targets
-                             if isinstance(t, ast.Name))
-    out: List[Tuple[str, str, int]] = []
-    for node in binds:
+def _method_aliases(sf: SourceFile) -> List[Tuple[str, str, str, int]]:
+    """(alias, method, base, line) for each module-level bind of another
+    object's method (`ingest_stats = counters.ingest.stats`, tuple
+    unpacking included): a call to the alias is a call to `method` on
+    `base`, resolved as any attribute call is."""
+    out: List[Tuple[str, str, str, int]] = []
+    for node in sf.tree.body:
+        if not isinstance(node, ast.Assign):
+            continue
         for t in node.targets:
             if isinstance(t, ast.Tuple) and isinstance(node.value, ast.Tuple):
                 pairs = list(zip(t.elts, node.value.elts))
             else:
                 pairs = [(t, node.value)]
             for name, value in pairs:
-                if isinstance(name, ast.Name) \
-                        and isinstance(value, ast.Attribute) \
-                        and isinstance(value.value, ast.Name) \
-                        and value.value.id in instances:
-                    out.append((name.id, value.attr, node.lineno))
+                base = dotted(value.value) if isinstance(value, ast.Attribute) else None
+                if isinstance(name, ast.Name) and base:
+                    out.append((name.id, value.attr, base, node.lineno))
     return out
 
 
@@ -286,21 +278,10 @@ def extract_facts(sf: SourceFile) -> dict:
                 for callee, base, ln, held in walk.calls
             ],
         })
-    # an alias record acquires what its method acquires (so cross-module
-    # callers resolve it by name) and calls the method
-    methods: Dict[str, List[dict]] = {}
-    for f in functions:
-        methods.setdefault(f["name"], []).append(f)
-    for alias, method, line in _method_aliases(sf):
-        functions.append({
-            "name": alias,
-            "line": line,
-            "entry": None,
-            "extra": [],
-            "acquires": [a for g in methods.get(method, ()) for a in g["acquires"]],
-            "nested": [],
-            "calls": [[method, "", line, []]],
-        })
+    # an alias calls its method, so cross-module callers resolve it by name
+    for alias, method, base, line in _method_aliases(sf):
+        functions.append({"name": alias, "line": line, "entry": None, "extra": [],
+                          "acquires": [], "nested": [], "calls": [[method, base, line, []]]})
     return {
         "module": module,
         "path": sf.path,

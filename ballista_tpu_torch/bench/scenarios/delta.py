@@ -17,6 +17,7 @@ import time
 from ballista_tpu_torch.bench import device_arg, synchronize
 from ballista_tpu_torch.bench.scenarios import digest_ipc
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 
 def _delta_scenario(device=None) -> dict:
@@ -29,7 +30,7 @@ def _delta_scenario(device=None) -> dict:
     from ballista_tpu_torch.engine import ExecutionContext
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
     from ballista_tpu_torch.ops import kernels
-    from ballista_tpu_torch.ops.runtime import delta_stats, reset_residency, tenancy_stats
+    from ballista_tpu_torch.ops.runtime import reset_residency
     from ballista_tpu_torch.scheduler.kv import SqliteBackend
 
     n_rows = int(os.environ.get("BENCH_DELTA_ROWS", "50000"))
@@ -66,12 +67,12 @@ def _delta_scenario(device=None) -> dict:
             ctx.register_parquet("t", d)
             return ctx.sql(sql).collect()
 
-        delta_stats(reset=True)
+        counters.delta.stats(reset=True)
         engine_run()
         write_part(d, 2)
         reset_stage_caches()
         engine_run()
-        chunk_stats = delta_stats(reset=True)
+        chunk_stats = counters.delta.stats(reset=True)
         reset_stage_caches()
 
     def cluster_run(d, cluster, settings=None):
@@ -93,11 +94,11 @@ def _delta_scenario(device=None) -> dict:
         write_part(d, 1)
         cluster = StandaloneCluster(n_executors=2, device=dev)
         try:
-            delta_stats(reset=True)
+            counters.delta.stats(reset=True)
             cluster_run(d, cluster)
             write_part(d, 2)
             adv_out, adv_dt = cluster_run(d, cluster)
-            adv_stats = delta_stats(reset=True)
+            adv_stats = counters.delta.stats(reset=True)
             no_cache = {"ballista.cache.results": "false"}
             cold_out, cold_dt = cluster_run(d, cluster, settings=no_cache)
             cold_dt = min(cold_dt, cluster_run(d, cluster, settings=no_cache)[1])
@@ -115,11 +116,11 @@ def _delta_scenario(device=None) -> dict:
         })
         cluster = StandaloneCluster(n_executors=2, config=chaos_cfg, device=dev)
         try:
-            delta_stats(reset=True)
+            counters.delta.stats(reset=True)
             cluster_run(d, cluster)
             write_part(d, 2)
             chaos_out, _ = cluster_run(d, cluster)
-            chaos_stats = delta_stats(reset=True)
+            chaos_stats = counters.delta.stats(reset=True)
         finally:
             cluster.shutdown()
 
@@ -130,15 +131,15 @@ def _delta_scenario(device=None) -> dict:
         kv = SqliteBackend.temporary()
         cluster = StandaloneCluster(n_executors=1, kv=kv, device=dev)
         try:
-            delta_stats(reset=True)
+            counters.delta.stats(reset=True)
             cluster_run(d, cluster)
             write_part(d, 2)
             cluster_run(d, cluster)
-            restart_advanced = delta_stats(reset=True).get("advance_hits", 0) >= 1
+            restart_advanced = counters.delta.stats(reset=True).get("advance_hits", 0) >= 1
             cluster.restart_scheduler()
-            tenancy_stats(reset=True)
+            counters.tenancy.stats(reset=True)
             restart_out, _ = cluster_run(d, cluster)
-            restart_hit = tenancy_stats(reset=True).get("cache_hit", 0) >= 1
+            restart_hit = counters.tenancy.stats(reset=True).get("cache_hit", 0) >= 1
         finally:
             cluster.shutdown()
 

@@ -15,6 +15,7 @@ import time
 from ballista_tpu_torch.bench import device_arg, synchronize
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 
 def _elastic_scenario(device=None) -> dict:
@@ -24,7 +25,6 @@ def _elastic_scenario(device=None) -> dict:
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
-    from ballista_tpu_torch.ops.runtime import fleet_stats, recovery_stats, shuffle_tier_stats
     from ballista_tpu_torch.proto import ballista_pb2 as pb
 
     n_jobs = int(os.environ.get("BENCH_ELASTIC_JOBS", "6"))
@@ -57,9 +57,9 @@ def _elastic_scenario(device=None) -> dict:
         finally:
             cluster.shutdown()
 
-        fleet_stats(reset=True)
-        recovery_stats(reset=True)
-        shuffle_tier_stats(reset=True)
+        counters.fleet.stats(reset=True)
+        counters.recovery.stats(reset=True)
+        counters.shuffle_tier.stats(reset=True)
         cluster = StandaloneCluster(
             n_executors=1, device=dev,
             config=BallistaConfig({
@@ -105,9 +105,9 @@ def _elastic_scenario(device=None) -> dict:
         finally:
             cluster.shutdown()
 
-    fl = fleet_stats(reset=True)
-    tier = shuffle_tier_stats(reset=True)
-    rec = recovery_stats(reset=True)
+    fl = counters.fleet.stats(reset=True)
+    tier = counters.shuffle_tier.stats(reset=True)
+    rec = counters.recovery.stats(reset=True)
     result = {
         "jobs": n_jobs,
         "fleet_min": 1,

@@ -15,6 +15,7 @@ import time
 from ballista_tpu_torch.bench import device_arg, synchronize
 from ballista_tpu_torch.bench.scenarios import digest_ipc
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 
 def _exchange_scenario(device=None) -> dict:
@@ -24,7 +25,6 @@ def _exchange_scenario(device=None) -> dict:
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
     from ballista_tpu_torch.ops import exchange
-    from ballista_tpu_torch.ops.runtime import exchange_stats, recovery_stats
 
     n_rows = int(os.environ.get("BENCH_EXCHANGE_ROWS", "60000"))
     chaos_seed = int(os.environ.get("BENCH_EXCHANGE_SEED", "5"))
@@ -40,8 +40,8 @@ def _exchange_scenario(device=None) -> dict:
 
     def run(settings):
         exchange.reset()
-        exchange_stats(reset=True)
-        recovery_stats(reset=True)
+        counters.exchange.stats(reset=True)
+        counters.recovery.stats(reset=True)
         cluster = StandaloneCluster(n_executors=1, device=dev)
         try:
             ctx = BallistaContext(*cluster.scheduler_addr, device=dev, settings={
@@ -57,7 +57,7 @@ def _exchange_scenario(device=None) -> dict:
             ctx.close()
         finally:
             cluster.shutdown()
-        return out, dt, exchange_stats(reset=True), recovery_stats(reset=True)
+        return out, dt, counters.exchange.stats(reset=True), counters.recovery.stats(reset=True)
 
     on_out, on_dt, on_stats, on_rec = run({})
     off_out, off_dt, off_stats, _ = run({"ballista.tpu.exchange": "false"})

@@ -18,6 +18,7 @@ import time
 
 from ballista_tpu_torch.bench import data, device_arg
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed
+from ballista_tpu_torch.utils import counters
 from ballista_tpu_torch.utils.locks import make_lock
 
 QUERIES = {
@@ -151,7 +152,6 @@ def _latency_scenario(device=None) -> dict:
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
-    from ballista_tpu_torch.ops.runtime import serving_stats
 
     sf = float(os.environ.get("BENCH_LAT_SF", "0.01"))
     duration = float(os.environ.get("BENCH_LAT_DURATION", "10"))
@@ -187,7 +187,7 @@ def _latency_scenario(device=None) -> dict:
         for sql in QUERIES.values():  # warmup: libraries, layouts, caches
             _timed_stream_query(warm_ctx, sql)
         warm_ctx.close()
-        warm = serving_stats(reset=True)
+        warm = counters.serving.stats(reset=True)
 
         sweep = []
         qlist = list(QUERIES.values())
@@ -240,7 +240,7 @@ def _latency_scenario(device=None) -> dict:
             print(f"[latency] {row}", file=sys.stderr)
             sweep.append(row)
 
-        s = serving_stats(reset=True)
+        s = counters.serving.stats(reset=True)
         hits = (s.get("compile_hit_memory", 0) + s.get("compile_hit_disk", 0)
                 + s.get("compile_prewarmed", 0))
         builds = s.get("kernel_built", 0)

@@ -14,6 +14,7 @@ import time
 from ballista_tpu_torch.bench import data, device_arg, synchronize
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed
 from ballista_tpu_torch.bench.tpch import QUERIES_DIR, check_answer
+from ballista_tpu_torch.utils import counters
 from ballista_tpu_torch.utils.locks import make_lock
 
 
@@ -25,7 +26,6 @@ def _multitenant_scenario(device=None) -> dict:
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine import ExecutionContext
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
-    from ballista_tpu_torch.ops.runtime import tenancy_stats
 
     n_tenants = int(os.environ.get("BENCH_MT_TENANTS", "4"))
     replays = int(os.environ.get("BENCH_MT_REPLAYS", "24"))
@@ -47,7 +47,7 @@ def _multitenant_scenario(device=None) -> dict:
         config=BallistaConfig({"ballista.tenant.max_inflight": "8"}),
     )
     try:
-        tenancy_stats(reset=True)
+        counters.tenancy.stats(reset=True)
         rng = np.random.default_rng(7)
         schedules = [
             [int(z - 1) % len(queries) for z in rng.zipf(1.5, size=replays)]
@@ -88,7 +88,7 @@ def _multitenant_scenario(device=None) -> dict:
             lat = list(samples)
         if errors or not lat:
             raise ScenarioFailed(f"multitenant: {errors or ['no latencies']}")
-        stats = tenancy_stats(reset=True)
+        stats = counters.tenancy.stats(reset=True)
         shares = cluster.scheduler_impl.state.tenant_task_shares()
         secs = sorted(s for _qi, s in lat)
         hits = stats.get("cache_hit", 0)

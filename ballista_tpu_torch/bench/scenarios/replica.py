@@ -16,6 +16,7 @@ import time
 from ballista_tpu_torch.bench import device_arg
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed, digest_rows
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 
 def _replica_client_proc(endpoints, home, table, settings, qlist, idx, duration, out_q,
@@ -72,8 +73,6 @@ def _replica_scenario(device=None) -> dict:
         "select g, s, sum(v) as sv from t group by g, s order by g, s",
         "select s, sum(v) as sv, sum(q) as sq from t group by s order by s",
     ]
-
-    from ballista_tpu_torch.ops.runtime import recovery_stats
 
     def run(n_schedulers: int, kill_at: float | None = None):
         cluster = StandaloneCluster(n_executors=2, n_schedulers=n_schedulers,
@@ -138,9 +137,9 @@ def _replica_scenario(device=None) -> dict:
 
     one_qps, one_digests, _ = run(1)
     two_qps, two_digests, _ = run(2)
-    recovery_stats(reset=True)
+    counters.recovery.stats(reset=True)
     fo_qps, fo_digests, killed = run(2, kill_at=duration / 2)
-    fo_recovery = {k: v for k, v in recovery_stats(reset=True).items() if v}
+    fo_recovery = {k: v for k, v in counters.recovery.stats(reset=True).items() if v}
     result = {
         "rows": n_rows,
         "clients": clients,

@@ -17,6 +17,7 @@ import time
 from ballista_tpu_torch.bench import data, device_arg
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed, digest_rows
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 GBY = "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
 QUERIES = [
@@ -61,7 +62,6 @@ def _sharedscan_scenario(device=None) -> dict:
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
-    from ballista_tpu_torch.ops.runtime import shared_scan_stats
 
     sf = float(os.environ.get("BENCH_SS_SF", "0.1"))
     duration = float(os.environ.get("BENCH_SS_DURATION", "6"))
@@ -92,7 +92,7 @@ def _sharedscan_scenario(device=None) -> dict:
         # shared scan serves a queue's wave from one scan
         cluster = StandaloneCluster(n_executors=1, concurrent_tasks=1, device=dev,
                                     config=BallistaConfig({"ballista.tpu.cost_model_dir": ""}))
-        shared_scan_stats(reset=True)
+        counters.shared_scan.stats(reset=True)
         try:
             counts = [0] * tenants
             errors: list = []
@@ -116,7 +116,7 @@ def _sharedscan_scenario(device=None) -> dict:
 
             warm_round()
             warm_round()
-            shared_scan_stats(reset=True)
+            counters.shared_scan.stats(reset=True)
 
             def tenant_loop(i: int) -> None:
                 try:
@@ -146,7 +146,8 @@ def _sharedscan_scenario(device=None) -> dict:
                 raise ScenarioFailed(f"sharedscan tenants={tenants}: "
                                      f"{errors or ['hung or empty']}")
             row = {"tenants": tenants, "queries": sum(counts),
-                   "qps": round(sum(counts) / wall, 2), "shared_scan": shared_scan_stats(reset=True)}
+                   "qps": round(sum(counts) / wall, 2),
+                   "shared_scan": counters.shared_scan.stats(reset=True)}
             print(f"[sharedscan] {row}", file=sys.stderr)
             sweep.append(row)
         finally:

@@ -16,6 +16,7 @@ from ballista_tpu_torch.bench import data, device_arg
 from ballista_tpu_torch.bench.scenarios import ScenarioFailed, digest_rows
 from ballista_tpu_torch.bench.scenarios.latency import _drive_clients
 from ballista_tpu_torch.bench.tpch import AnswerMismatch
+from ballista_tpu_torch.utils import counters
 
 RATE = 0.12
 SQL = ("select l_returnflag, count(*) as n, sum(l_extendedprice) as s "
@@ -44,7 +45,6 @@ def _speculation_scenario(device=None) -> dict:
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.executor.runtime import StandaloneCluster
     from ballista_tpu_torch.ops import costmodel
-    from ballista_tpu_torch.ops.runtime import speculation_stats
 
     sf = float(os.environ.get("BENCH_SPEC_SF", "0.01"))
     duration = float(os.environ.get("BENCH_SPEC_DURATION", "8"))
@@ -74,7 +74,7 @@ def _speculation_scenario(device=None) -> dict:
         )
         try:
             host, port = cluster.scheduler_addr
-            speculation_stats(reset=True)
+            counters.speculation.stats(reset=True)
             ctx = BallistaContext(host, port, settings=client_base, device=dev)
             register_all(ctx, str(d))
             # fault-free warm pass: the task.run rates the monitor predicts from
@@ -83,7 +83,7 @@ def _speculation_scenario(device=None) -> dict:
                 baseline = ctx.sql(SQL).collect()
             ctx.close()
             base_digest = digest_rows(baseline)
-            warm_stats = speculation_stats(reset=True)
+            warm_stats = counters.speculation.stats(reset=True)
             if seed is None:
                 st = cluster.scheduler_impl.state
                 coords = set()
@@ -102,7 +102,7 @@ def _speculation_scenario(device=None) -> dict:
                  "ballista.chaos.slow_ms": str(slow_ms)},
                 [SQL], clients, duration, digest=True, device=device,
             )
-            stats = speculation_stats(reset=True)
+            stats = counters.speculation.stats(reset=True)
             lats.sort()
 
             def pct(q):

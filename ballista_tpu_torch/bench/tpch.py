@@ -89,7 +89,13 @@ def _context(backend: str, sf: float | None, device=None):
 
 
 def reset_contexts() -> None:
+    """End the bench's sessions: drop them and the port's in-memory cost
+    store they warmed, so the work that follows in this process routes as
+    in a fresh one (a persisted store stays on disk)."""
+    from ballista_tpu_torch.ops import costmodel
+
     _CTX.clear()
+    costmodel.reset()
 
 
 def timed_collect(ctx, sql: str, device=None):

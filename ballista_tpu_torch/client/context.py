@@ -30,7 +30,7 @@ from ballista_tpu_torch.logical.builder import LogicalPlanBuilder
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.rpc import SchedulerGrpcClient
 from ballista_tpu_torch.serde.logical import plan_to_proto
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 
 POLL_INTERVAL = 0.1  # ref context.rs:195
 # status polls start here and double toward POLL_INTERVAL (ISSUE 8): a
@@ -71,9 +71,7 @@ class _StatusWatch:
         except Exception:
             self._down = True
             return
-        from ballista_tpu_torch.ops.runtime import record_serving
-
-        record_serving("status_push_subscribed")
+        counters.serving.record("status_push_subscribed")
         threading.Thread(
             target=self._read, daemon=True, name="status-watch"
         ).start()
@@ -101,13 +99,9 @@ class _StatusWatch:
             return None
         if st is None:
             self._down = True
-            from ballista_tpu_torch.ops.runtime import record_serving
-
-            record_serving("status_push_closed")
+            counters.serving.record("status_push_closed")
             return None
-        from ballista_tpu_torch.ops.runtime import record_serving
-
-        record_serving("status_push")
+        counters.serving.record("status_push")
         return st
 
     def alive(self) -> bool:
@@ -168,9 +162,7 @@ class _JobStatusSource:
             if self._watch is not None:
                 self._watch.close()
             if self._config.push_status():
-                from ballista_tpu_torch.ops.runtime import record_serving
-
-                record_serving("status_push_rehomed")
+                counters.serving.record("status_push_rehomed")
                 self._watch = _StatusWatch(self._client, self._job_id)
         return res.status
 
@@ -238,9 +230,7 @@ class BallistaContext(ExecutionContext):
             # cached partitions died under a live lease; it invalidated the
             # entry and failed the job. ONE resubmission re-executes for
             # real (the fresh submission misses the now-deleted entry).
-            from ballista_tpu_torch.ops.runtime import record_tenancy
-
-            record_tenancy("cache_lost_resubmitted")
+            counters.tenancy.record("cache_lost_resubmitted")
             job_id = self.submit(plan)
             try:
                 return self._collect_results(job_id, plan.schema(), timeout)
@@ -296,9 +286,7 @@ class BallistaContext(ExecutionContext):
                     f"job {e.job_id}: cached result partitions lost "
                     "mid-stream — retry the query"
                 ) from e
-            from ballista_tpu_torch.ops.runtime import record_tenancy
-
-            record_tenancy("cache_lost_resubmitted")
+            counters.tenancy.record("cache_lost_resubmitted")
             job_id = self.submit(plan)
             try:
                 yield from self._stream_results(job_id, plan.schema(), timeout)
@@ -320,7 +308,6 @@ class BallistaContext(ExecutionContext):
         path: a restarted job re-polls for fresh locations; a dead cached
         entry surfaces _CachedResultLost for the caller's resubmission."""
         from ballista_tpu_torch.errors import ShuffleFetchError
-        from ballista_tpu_torch.ops.runtime import record_recovery, record_serving
 
         deadline = time.time() + timeout
         # push-status source (ISSUE 11): each status transition — every
@@ -400,7 +387,7 @@ class BallistaContext(ExecutionContext):
                             if which == "completed" and status.completed.cached:
                                 raise _CachedResultLost(job_id) from e
                             raise
-                        record_recovery("result_fetch_restarted")
+                        counters.recovery.record("result_fetch_restarted")
                         # keep fetching the OTHER listed partitions this
                         # round (one dead location must not starve the
                         # rest); this one retries after the cooldown / on
@@ -411,7 +398,7 @@ class BallistaContext(ExecutionContext):
                     committed[p] = batches
                     done.add(p)
                     if which == "running":
-                        record_serving("stream_partition_early")
+                        counters.serving.record("stream_partition_early")
                 while next_yield in committed:
                     for batch in committed.pop(next_yield):
                         yield batch
@@ -435,19 +422,18 @@ class BallistaContext(ExecutionContext):
         if not root:
             return None
         from ballista_tpu_torch.executor.confine import resolve_contained
-        from ballista_tpu_torch.ops.runtime import record_shuffle_tier
 
         resolved = resolve_contained(os.path.join(loc.path, "0.arrow"), root)
         if resolved is None or not os.path.exists(resolved):
-            record_shuffle_tier("client_storage_miss")
+            counters.shuffle_tier.record("client_storage_miss")
             return None
         try:
             with pa.ipc.open_file(resolved) as r:
                 table = r.read_all()
         except Exception:
-            record_shuffle_tier("client_storage_miss")
+            counters.shuffle_tier.record("client_storage_miss")
             return None
-        record_shuffle_tier("client_storage_fetch")
+        counters.shuffle_tier.record("client_storage_fetch")
         return table
 
     def _fetch_partition_batches(self, loc: pb.PartitionLocation) -> list:
@@ -561,9 +547,7 @@ class BallistaContext(ExecutionContext):
                     # nothing for the scheduler to restart (or the job
                     # already failed for good): surface the fetch error
                     raise
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
-                record_recovery("result_fetch_restarted")
+                counters.recovery.record("result_fetch_restarted")
                 continue
             if not tables:
                 return schema.empty_table()

@@ -19,6 +19,7 @@ import pyarrow.flight as flight
 from ballista_tpu_torch.distributed.stages import PartitionStats
 from ballista_tpu_torch.errors import RpcError
 from ballista_tpu_torch.proto import ballista_pb2 as pb
+from ballista_tpu_torch.utils import counters
 
 
 class BallistaClient:
@@ -61,9 +62,7 @@ class BallistaClient:
             except flight.FlightError as e:
                 if not self._transient(e) or i + 1 >= attempts:
                     raise RpcError(f"executor {self.host}:{self.port}: {e}") from e
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
-                record_recovery("rpc_retry")
+                counters.recovery.record("rpc_retry")
                 import time
 
                 time.sleep(backoff_delay(i, self.backoff_s))
@@ -89,9 +88,7 @@ class BallistaClient:
             except flight.FlightError as e:
                 if yielded or not self._transient(e) or i + 1 >= attempts:
                     raise RpcError(f"executor {self.host}:{self.port}: {e}") from e
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
-                record_recovery("rpc_retry")
+                counters.recovery.record("rpc_retry")
                 import time
 
                 time.sleep(backoff_delay(i, self.backoff_s))

@@ -19,7 +19,6 @@ from typing import Dict, Iterator, Mapping, Optional
 
 BALLISTA_BATCH_SIZE = "ballista.batch.size"
 BALLISTA_BACKEND = "ballista.executor.backend"  # "cpu" (Arrow host kernels) | "cuda" (PyTorch + CUDA kernels)
-BALLISTA_STAGE_FUSION = "ballista.tpu.stage_fusion"  # whole-stage SPMD compilation on/off
 BALLISTA_MESH_SHAPE = "ballista.tpu.mesh"  # e.g. "data:8" or "data:4,model:2"
 BALLISTA_SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
 # compression for materialized shuffle pieces: "" (none) | "zstd" | "lz4"
@@ -243,16 +242,10 @@ BALLISTA_PUSH_DISPATCH = "ballista.executor.push_dispatch"
 # load of a large idle fleet falls ~8x without touching crash-tolerance
 # semantics (the echo/lease machinery rides whatever polls happen).
 BALLISTA_IDLE_POLL_MAX_S = "ballista.executor.idle_poll_max_s"
-# persistent compiled-program (AOT) cache directory beside the layout
-# cache: jitted device-stage programs are exported (jax.export), serialized
-# to disk keyed on stage identity + shape bucket + jax/jaxlib/backend
-# fingerprint, and reloaded by later processes — a warm disk tier under the
-# in-memory jit cache, so a cold executor skips the Python trace (and, with
-# the persistent XLA cache, the compile). "" disables.
-BALLISTA_TPU_AOT_CACHE_DIR = "ballista.tpu.aot_cache"
-# pre-warm at executor start: load every manifest entry of the AOT cache
-# and compile it BEFORE the first task arrives, so a cold executor's first
-# small query pays zero trace/compile. Off by default — interactive/test
+# pre-warm at start: an ExecutionContext or executor on the card loads
+# every kernel library (ops/cuda_kernels.py::prewarm; a missing one builds
+# in one nvcc batch) BEFORE the first task, so a cold executor's first
+# small query pays no build or load. Off by default — interactive/test
 # processes should not pay a bulk warm-up they may never amortize.
 BALLISTA_TPU_PREWARM = "ballista.tpu.prewarm"
 # client-side streaming result fetch: collect() starts fetching (and
@@ -269,8 +262,8 @@ BALLISTA_STREAM_RESULTS = "ballista.client.stream_results"
 # the pure static decline ladder exactly; routing never changes results —
 # bit-identity to the host oracle is the invariant either way.
 BALLISTA_TPU_COST_MODEL = "ballista.tpu.cost_model"
-# persisted per-shape-bucket cost store beside the layout cache, keyed like
-# the AOT cache on op/stage identity + shape bucket + backend fingerprint.
+# persisted per-shape-bucket cost store beside the layout cache, keyed on
+# op/stage identity + shape bucket + backend fingerprint.
 # "" keeps the store in-memory only (observations still steer routing
 # within the process, nothing survives it).
 BALLISTA_TPU_COST_MODEL_DIR = "ballista.tpu.cost_model_dir"
@@ -313,7 +306,6 @@ DEFAULT_SETTINGS: Dict[str, str] = {
     # (rust/core/src/serde/physical_plan/from_proto.rs:100-102).
     BALLISTA_BATCH_SIZE: "32768",
     BALLISTA_BACKEND: "cuda",
-    BALLISTA_STAGE_FUSION: "true",
     BALLISTA_MESH_SHAPE: "data:1",
     BALLISTA_SHUFFLE_PARTITIONS: "16",
     BALLISTA_SHUFFLE_CODEC: "",
@@ -377,15 +369,13 @@ DEFAULT_SETTINGS: Dict[str, str] = {
     BALLISTA_PLAN_CACHE: "true",
     BALLISTA_PUSH_DISPATCH: "true",
     BALLISTA_IDLE_POLL_MAX_S: "2",
-    # cwd-relative beside the layout cache (same rationale: warm starts
-    # survive process restarts without writing outside the working tree)
-    BALLISTA_TPU_AOT_CACHE_DIR: ".ballista_cache/aot",
     BALLISTA_TPU_PREWARM: "false",
     BALLISTA_STREAM_RESULTS: "false",
     # default ON with the static ladder as cold-start prior + safety cap: a
     # cold (or absent, or corrupt) store reproduces pre-adaptive routing
     BALLISTA_TPU_COST_MODEL: "true",
-    # cwd-relative beside the layout/AOT caches (same rationale)
+    # cwd-relative beside the layout cache (warm starts survive process
+    # restarts without writing outside the working tree)
     BALLISTA_TPU_COST_MODEL_DIR: ".ballista_cache/costmodel",
     BALLISTA_RPC_RETRIES: "3",
     BALLISTA_RPC_BACKOFF_MS: "50",
@@ -437,9 +427,6 @@ class BallistaConfig(Mapping[str, str]):
 
     def backend(self) -> str:
         return self._settings[BALLISTA_BACKEND]
-
-    def stage_fusion(self) -> bool:
-        return self._settings[BALLISTA_STAGE_FUSION].lower() in ("1", "true", "yes")
 
     def shuffle_codec(self) -> str:
         c = self._settings[BALLISTA_SHUFFLE_CODEC].strip().lower()
@@ -688,15 +675,8 @@ class BallistaConfig(Mapping[str, str]):
         is healthy; the floor is the 250ms reference interval."""
         return max(0.25, float(self._settings[BALLISTA_IDLE_POLL_MAX_S]))
 
-    def tpu_aot_cache_dir(self) -> str:
-        """Expanded AOT program-cache directory; "" = disabled."""
-        import os
-
-        d = self._settings[BALLISTA_TPU_AOT_CACHE_DIR].strip()
-        return os.path.expanduser(d) if d else ""
-
     def tpu_prewarm(self) -> bool:
-        """Load + compile every AOT-cache manifest entry at executor start."""
+        """Load every kernel library before the first task."""
         return self._settings[BALLISTA_TPU_PREWARM].lower() in ("1", "true", "yes")
 
     def stream_results(self) -> bool:

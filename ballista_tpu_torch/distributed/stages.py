@@ -40,7 +40,7 @@ from ballista_tpu_torch.physical.plan import (
 )
 from ballista_tpu_torch.physical.repartition import hash_rows
 from ballista_tpu_torch.physical.expr import _as_array
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 
 
 class PartitionStats:
@@ -179,10 +179,9 @@ class _ExchangeCapture:
         """Register the captured pieces; `finals` maps piece idx -> the
         published on-disk path. Returns whether anything was kept."""
         from ballista_tpu_torch.ops import exchange
-        from ballista_tpu_torch.ops.runtime import record_exchange
 
         if self.overflow:
-            record_exchange("skipped_budget")
+            counters.exchange.record("skipped_budget")
             return False
         kept = False
         for piece, batches in self.pieces.items():
@@ -246,7 +245,6 @@ class ShuffleWriterExec(ExecutionPlan):
             return None
 
         def pre_publish() -> None:
-            from ballista_tpu_torch.ops.runtime import record_shuffle_tier
             from ballista_tpu_torch.utils.chaos import ChaosInjected
 
             try:
@@ -255,7 +253,7 @@ class ShuffleWriterExec(ExecutionPlan):
                     f"w{self.stage_id}/{partition}@a{ctx.attempt}",
                 )
             except ChaosInjected:
-                record_shuffle_tier("storage_publish_torn")
+                counters.shuffle_tier.record("storage_publish_torn")
                 raise
 
         return pre_publish
@@ -265,8 +263,6 @@ class ShuffleWriterExec(ExecutionPlan):
         aggregate stats. Piece paths: {base}/{m}.arrow with {base} from
         shuffle_output_base — the executor work dir (local tier) or the
         shared storage dir (shared tier, same atomic publish)."""
-        from ballista_tpu_torch.ops.runtime import record_shuffle_tier
-
         base, storage_uri = shuffle_output_base(
             ctx, self.job_id, self.stage_id, partition
         )
@@ -293,7 +289,7 @@ class ShuffleWriterExec(ExecutionPlan):
                 teed(), schema, piece_path, codec=codec,
                 pre_publish=pre_publish,
             )
-            record_shuffle_tier(
+            counters.shuffle_tier.record(
                 "storage_publish" if storage_uri else "local_publish"
             )
             if capture is not None:
@@ -353,7 +349,7 @@ class ShuffleWriterExec(ExecutionPlan):
                     if os.path.exists(tmp):
                         os.unlink(tmp)
         if ok:
-            record_shuffle_tier(
+            counters.shuffle_tier.record(
                 "storage_publish" if storage_uri else "local_publish"
             )
             if capture is not None:
@@ -531,7 +527,6 @@ class ShuffleReaderExec(ExecutionPlan):
             # on ctx.executor_id, so a StandaloneCluster's co-resident
             # executors never see false "local" hits.
             from ballista_tpu_torch.ops import exchange
-            from ballista_tpu_torch.ops.runtime import record_exchange
 
             if chaos is not None and chaos.should_inject(
                 "exchange.evict",
@@ -541,25 +536,23 @@ class ShuffleReaderExec(ExecutionPlan):
                 # seeded eviction between produce and consume: drop the
                 # entry and take the ladder — a cache going cold is never
                 # a task failure, so zero retries by construction
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
-                record_recovery("chaos_injected")
+                counters.recovery.record("chaos_injected")
                 if exchange.evict(
                     ctx.executor_id, ctx.job_id, loc.stage_id,
                     loc.map_partition, piece_idx,
                 ):
-                    record_exchange("evicted_chaos")
+                    counters.exchange.record("evicted_chaos")
             hit = exchange.resolve(
                 ctx.executor_id, ctx.job_id, loc.stage_id,
                 loc.map_partition, piece_idx,
             )
             if hit is not None:
                 batches, nbytes = hit
-                record_exchange("reupload_skipped")
-                record_exchange("h2d_bytes_saved", nbytes)
+                counters.exchange.record("reupload_skipped")
+                counters.exchange.record("h2d_bytes_saved", nbytes)
                 yield from batches
                 return
-            record_exchange("miss")
+            counters.exchange.record("miss")
         if loc.storage_uri:
             # disaggregated tier (ISSUE 15): the piece's home is a PATH —
             # resolve it from the shared mount first. A shuffle.store READ
@@ -569,26 +562,21 @@ class ShuffleReaderExec(ExecutionPlan):
             # fetch below, then fetch_failed -> lineage recompute — the
             # recomputed map republishes and the requeued consumer's fresh
             # attempt draws a fresh verdict.
-            from ballista_tpu_torch.ops.runtime import (
-                record_recovery,
-                record_shuffle_tier,
-            )
-
             torn = chaos is not None and chaos.should_inject(
                 "shuffle.store",
                 f"r{loc.stage_id}/{loc.map_partition}/piece{piece_idx}"
                 f"@a{ctx.attempt}",
             )
             if torn:
-                record_recovery("chaos_injected")
-                record_shuffle_tier("storage_read_torn")
+                counters.recovery.record("chaos_injected")
+                counters.shuffle_tier.record("storage_read_torn")
             else:
                 resolved = self._storage_read_path(piece, ctx)
                 if resolved is not None and os.path.exists(resolved):
-                    record_shuffle_tier("storage_fetch")
+                    counters.shuffle_tier.record("storage_fetch")
                     yield from read_ipc_file(resolved)
                     return
-            record_shuffle_tier("storage_fallback_peer")
+            counters.shuffle_tier.record("storage_fallback_peer")
             if not loc.host or not loc.port:
                 # no live peer to fall back to (the producing executor is
                 # gone and its metadata never bound): the piece is LOST for
@@ -607,9 +595,7 @@ class ShuffleReaderExec(ExecutionPlan):
         if resolved is not None and os.path.exists(resolved):
             yield from read_ipc_file(resolved)
         elif ctx.shuffle_fetcher is not None:
-            from ballista_tpu_torch.ops.runtime import record_shuffle_tier
-
-            record_shuffle_tier("peer_fetch")
+            counters.shuffle_tier.record("peer_fetch")
             try:
                 yield from ctx.shuffle_fetcher(loc, piece_idx)
             except ShuffleFetchError:

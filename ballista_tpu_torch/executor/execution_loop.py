@@ -41,7 +41,7 @@ from ballista_tpu_torch.executor.flight_service import flight_shuffle_fetcher
 from ballista_tpu_torch.physical.plan import TaskContext
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.rpc import SchedulerGrpcClient
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.executor")
@@ -166,8 +166,6 @@ class PollLoop:
         read). Returns False when in-flight work outlives
         `timeout` — the caller decides whether to stop anyway (which would
         reintroduce the recovery path drain exists to avoid)."""
-        from ballista_tpu_torch.ops.runtime import record_fleet
-
         self._draining.set()
         self._cancel_push()
         self._wake.set()
@@ -195,14 +193,14 @@ class PollLoop:
                         self._delivering == 0 and self._finished.empty()
                     )
                 if clean:
-                    record_fleet("drain_completed")
+                    counters.fleet.record("drain_completed")
                     return True
                 continue
             # a finished task's status must leave on the NEXT poll, not a
             # decayed heartbeat
             self._wake.set()
             time.sleep(0.05)
-        record_fleet("drain_timeout")
+        counters.fleet.record("drain_timeout")
         return False
 
     def stop(self) -> None:
@@ -223,10 +221,8 @@ class PollLoop:
             if self._chaos is not None and self._chaos.should_inject(
                 "executor.death", f"{self.metadata.id}/poll{self._poll_n}"
             ):
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
-                record_recovery("chaos_injected")
-                record_recovery("chaos_executor_death")
+                counters.recovery.record("chaos_injected")
+                counters.recovery.record("chaos_executor_death")
                 log.warning(
                     "chaos[executor.death]: executor %s dying at poll %d",
                     self.metadata.id, self._poll_n,
@@ -417,7 +413,6 @@ class PollLoop:
         still just a failed subscription here; the executor keeps probing
         at the backoff cap, so flipping the scheduler's config (or a
         rolling upgrade) picks the stream back up without a restart."""
-        from ballista_tpu_torch.ops.runtime import record_serving
         from ballista_tpu_torch.scheduler.rpc import backoff_delay
 
         failures = 0
@@ -433,7 +428,7 @@ class PollLoop:
                 # the first iteration below, within one scheduler tick
                 self._stream_ok.set()
                 was_up = True
-                record_serving("push_subscribed")
+                counters.serving.record("push_subscribed")
                 failures = 0
                 for td in call:
                     self._on_pushed_task(td)
@@ -446,7 +441,7 @@ class PollLoop:
                     self._push_call = None
                     self._poll_interval = POLL_INTERVAL_SECS
                 if was_up:
-                    record_serving("push_stream_drop")
+                    counters.serving.record("push_stream_drop")
                 self._wake.set()  # fallback polling starts NOW
             if self._stop.is_set() or self._draining.is_set():
                 return
@@ -470,10 +465,8 @@ class PollLoop:
         the held slot — the task thread blocks for its semaphore slot
         itself (the scheduler's credit keeps pushes ≈ slots; a transient
         overrun just queues on the semaphore, never drops work)."""
-        from ballista_tpu_torch.ops.runtime import record_serving
-
         self._register_inflight(task)
-        record_serving("task_pushed")
+        counters.serving.record("task_pushed")
         threading.Thread(
             target=self._run_task, args=(task, False), daemon=True
         ).start()
@@ -595,11 +588,9 @@ class PollLoop:
                     # speculation subsystem must beat. Keyed on the attempt,
                     # so a speculative duplicate (attempt N+1) draws a
                     # FRESH verdict and is not slowed with its primary.
-                    from ballista_tpu_torch.ops.runtime import record_recovery
-
                     delay = ctx.config.chaos_slow_ms() / 1000.0
-                    record_recovery("chaos_injected")
-                    record_recovery("chaos_slow_injected")
+                    counters.recovery.record("chaos_injected")
+                    counters.recovery.record("chaos_slow_injected")
                     log.warning(
                         "chaos[task.slow]: delaying task %s/%s/%s attempt "
                         "%d by %.0fms", pid.job_id, pid.stage_id,

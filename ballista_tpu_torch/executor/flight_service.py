@@ -25,6 +25,7 @@ from ballista_tpu_torch.config import BallistaConfig
 from ballista_tpu_torch.distributed.stages import ShuffleLocation
 from ballista_tpu_torch.physical.plan import TaskContext
 from ballista_tpu_torch.proto import ballista_pb2 as pb
+from ballista_tpu_torch.utils import counters
 
 log = logging.getLogger("ballista.executor.flight")
 
@@ -58,15 +59,14 @@ class BallistaFlightService(flight.FlightServerBase):
                 # indexes paths this executor published itself, so a miss
                 # falls through to the ordinary confined file read.
                 from ballista_tpu_torch.ops import exchange
-                from ballista_tpu_torch.ops.runtime import record_exchange
 
                 hit = exchange.resolve_path(path) or exchange.resolve_path(
                     action.fetch_partition.path
                 )
                 if hit is not None:
                     schema, batches, nbytes = hit
-                    record_exchange("served_from_registry")
-                    record_exchange("d2h_bytes_saved", nbytes)
+                    counters.exchange.record("served_from_registry")
+                    counters.exchange.record("d2h_bytes_saved", nbytes)
                     return flight.GeneratorStream(schema, iter(batches))
             if not os.path.isfile(path):
                 raise flight.FlightServerError(f"no such shuffle piece: {path}")

@@ -24,6 +24,7 @@ from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.kv import KvBackend, MemoryBackend
 from ballista_tpu_torch.scheduler.rpc import SchedulerGrpcClient
 from ballista_tpu_torch.scheduler.server import SchedulerServer, serve
+from ballista_tpu_torch.utils import counters
 
 log = logging.getLogger("ballista.executor")
 
@@ -262,12 +263,6 @@ class StandaloneCluster:
         starts."""
         import math
 
-        from ballista_tpu_torch.ops.runtime import (
-            record_fleet,
-            record_fleet_gauge,
-            record_recovery,
-        )
-
         fmin, fmax = self.config.fleet_min(), self.config.fleet_max()
         if fmax <= 0:
             return 0
@@ -276,9 +271,9 @@ class StandaloneCluster:
             backlog = state.predicted_backlog_seconds()
             running = state.has_running_tasks()
         size = self.fleet_size()
-        record_fleet("evaluations")
-        record_fleet_gauge("backlog_ms", backlog * 1000.0)
-        record_fleet_gauge("fleet_size", float(size))
+        counters.fleet.record("evaluations")
+        counters.fleet.gauge("backlog_ms", backlog * 1000.0)
+        counters.fleet.gauge("fleet_size", float(size))
         target = self.config.fleet_target_backlog_s()
         desired = size
         if backlog > target and size < fmax:
@@ -296,8 +291,8 @@ class StandaloneCluster:
             ):
                 # torn BEFORE any executor is touched: the fleet keeps its
                 # size this evaluation; the next draws a fresh verdict
-                record_recovery("chaos_injected")
-                record_fleet("scale_chaos_skipped")
+                counters.recovery.record("chaos_injected")
+                counters.fleet.record("scale_chaos_skipped")
                 log.warning(
                     "chaos[fleet.scale]: scale %d -> %d skipped",
                     size, desired,
@@ -306,8 +301,8 @@ class StandaloneCluster:
         if desired > size:
             for _ in range(desired - size):
                 self._spawn_executor()
-            record_fleet("scale_up", desired - size)
-            record_fleet_gauge("fleet_size", float(desired))
+            counters.fleet.record("scale_up", desired - size)
+            counters.fleet.gauge("fleet_size", float(desired))
             log.info("fleet scaled out %d -> %d (backlog %.2fs)",
                      size, desired, backlog)
             return desired - size
@@ -323,8 +318,6 @@ class StandaloneCluster:
         outside the fleet lock — it can take as long as the executor's
         in-flight work. Returns False when the fleet is already at
         `floor`."""
-        from ballista_tpu_torch.ops.runtime import record_fleet, record_fleet_gauge
-
         with self._fleet_mu:
             if len(self.executors) <= max(1, floor):
                 return False
@@ -344,8 +337,8 @@ class StandaloneCluster:
             if ex in self.executors:
                 self.executors.remove(ex)
             size2 = len(self.executors)
-        record_fleet("scale_down")
-        record_fleet_gauge("fleet_size", float(size2))
+        counters.fleet.record("scale_down")
+        counters.fleet.gauge("fleet_size", float(size2))
         log.info("fleet scaled in: retired %s (%d -> %d)", ex.id, size, size2)
         return True
 

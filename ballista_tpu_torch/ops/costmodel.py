@@ -95,9 +95,11 @@ _atexit_registered = False
 
 
 def _record_event(event: str, n: int = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_routing_event
+    # through the module: the lock-order analyzer resolves `runtime.x` by
+    # module, and this runs under _lock (the declared _lock -> counter edge)
+    from ballista_tpu_torch.ops import runtime
 
-    record_routing_event(event, n)
+    runtime.record_routing_event(event, n)
 
 
 def enabled() -> bool:

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ballista_tpu_torch.errors import DeviceError
+from ballista_tpu_torch.utils import counters
 from ballista_tpu_torch.utils.locks import make_lock
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -181,10 +182,8 @@ def _compile(jobs: List[Tuple[pathlib.Path, pathlib.Path, str]]) -> List[Tuple[i
 def _record_events(events: List[str]) -> None:
     """Count the kernel-library events a locked section collected, after
     it released _build_lock (a counter is never taken under it)."""
-    from ballista_tpu_torch.ops.runtime import record_serving
-
     for event in events:
-        record_serving(event)
+        counters.serving.record(event)
 
 
 # holds-lock: _build_lock
@@ -270,8 +269,6 @@ def prewarm(config, device=None) -> int:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
         return 0
-    from ballista_tpu_torch.ops.runtime import record_serving
-
     # the libraries not loaded yet are found or built together (one nvcc per
     # missing source, all started at once), then loaded
     events: List[str] = []
@@ -285,9 +282,9 @@ def prewarm(config, device=None) -> int:
         _record_events(events)
     for src in _sources():
         if src.stem in loaded:
-            record_serving("compile_prewarmed")
+            counters.serving.record("compile_prewarmed")
         else:
-            record_serving("compile_hit_memory")
+            counters.serving.record("compile_hit_memory")
     return len(loaded)
 
 

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import pyarrow as pa
 
+from ballista_tpu_torch.utils import counters
 from ballista_tpu_torch.utils.locks import make_lock
 
 _reg_lock = make_lock("ops.exchange._reg_lock")
@@ -120,13 +121,11 @@ def publish(executor_id: str, job_id: str, stage_id: int, map_partition: int,
     tenant's giant shuffle evicts its own cold pieces first and can
     never displace another tenant's to fit itself.
     """
-    from ballista_tpu_torch.ops.runtime import record_exchange
-
     nbytes = sum(b.nbytes for b in batches)
     if nbytes <= 0 or nbytes > budget or (
         0 < tenant_budget < nbytes
     ):
-        record_exchange("skipped_budget")
+        counters.exchange.record("skipped_budget")
         return False
     # price the incomer BEFORE the lock: _reg_lock is a leaf and must not
     # reach into the cost model while held
@@ -189,14 +188,14 @@ def publish(executor_id: str, job_id: str, stage_id: int, map_partition: int,
             _total_bytes += nbytes
             _tenant_bytes[tenant] = _tenant_bytes.get(tenant, 0) + nbytes
     if not kept:
-        record_exchange("skipped_budget")
+        counters.exchange.record("skipped_budget")
         return False
     if tenant_evicted:
-        record_exchange("evicted_tenant_budget", tenant_evicted)
+        counters.exchange.record("evicted_tenant_budget", tenant_evicted)
     if evicted:
-        record_exchange("evicted_budget", evicted)
-    record_exchange("published")
-    record_exchange("publish_bytes", nbytes)
+        counters.exchange.record("evicted_budget", evicted)
+    counters.exchange.record("published")
+    counters.exchange.record("publish_bytes", nbytes)
     return True
 
 

@@ -35,13 +35,15 @@ packages decide alike on the same input.
 Every device step runs on the ``device`` its caller names (the operator's
 ctx.device); a CUDA step either runs or raises. Every decline records its
 path and reason (runtime.record_join_path) and a "join:host" routing event,
-and never touches the stage routes of runtime.routing_stats().
+and never touches the stage routes of runtime.routing_stats(). Its
+readbacks carry the site "join" (counters.readback's "join.*" keys), so a
+caller can tell a stage's own readbacks from the join's.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -57,7 +59,6 @@ from ballista_tpu_torch.ops.runtime import (
     upload,
 )
 from ballista_tpu_torch.utils import tracing
-from ballista_tpu_torch.utils.locks import make_lock
 
 _PAD_CODE = np.int32(2**31 - 1)  # sorts last, never matches a valid probe
 
@@ -67,32 +68,6 @@ _SPLIT_MAX_HOT_KEYS = 16
 # planned-build-side row excess past which the observed cardinalities are
 # treated as a plan-time misestimate and the build side switches
 _BUILD_SWAP_RATIO = 4
-
-# readbacks made by this module (counts planes and gathers): they are also
-# in runtime.readback_stats(), and a caller that holds a stage's own
-# readbacks to a rule subtracts these
-_readback_lock = make_lock("ops.join._readback_lock")
-_readbacks = {"rows": 0, "bytes": 0, "readbacks": 0}  # guarded-by: _readback_lock
-
-
-def _readback(x, rows: Optional[int] = None) -> np.ndarray:
-    arr = readback(x, rows)
-    with _readback_lock:
-        _readbacks["rows"] += int(rows if rows is not None else arr.shape[-1])
-        _readbacks["bytes"] += int(arr.nbytes)
-        _readbacks["readbacks"] += 1
-    return arr
-
-
-def readback_stats(reset: bool = False) -> Dict[str, int]:
-    """The join module's share of runtime.readback_stats()."""
-    with _readback_lock:
-        out = dict(_readbacks)
-        if reset:
-            for k in _readbacks:
-                _readbacks[k] = 0
-    return out
-
 
 def match_runs(sorted_codes, probe_codes):
     """Per-probe match run over a sorted build-code plane: paired
@@ -157,7 +132,7 @@ def _counts_plane(build_codes: np.ndarray, probe_codes: np.ndarray, device):
     # already a non-match; pads reuse the same sentinel
     p = upload(pad_to(probe_codes.astype(np.int32), bucket_rows(np_, 16), -1), device)
     order, starts, counts = join_runs(b, p)
-    counts_h = _readback(counts)[:np_]
+    counts_h = readback(counts, site="join")[:np_]
     return order, starts, counts, counts_h, np_
 
 
@@ -168,7 +143,8 @@ def _run_gather(order, starts, counts, tier: int, np_: int) -> Tuple[np.ndarray,
 
     t0 = time.perf_counter()
     with tracing.span("join.gather"):
-        mat = _readback(gather_matches(order, starts, counts, tier), rows=np_)[:np_]
+        mat = readback(gather_matches(order, starts, counts, tier), rows=np_,
+                       site="join")[:np_]
     dt = time.perf_counter() - t0
     costmodel.observe("join.gather", int(counts.shape[0]) * tier, dt)
     return mat, dt

@@ -27,7 +27,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 
@@ -474,7 +474,6 @@ _H2D_MIN_CHUNKED = 256 << 20  # arrays below this go as one piece
 # tuned-chunk candidates: the power-of-two buckets (16 MB .. 256 MB) the
 # picker compares by their observed per-chunk h2d rates
 _H2D_CHUNK_CANDIDATES = tuple(1 << p for p in range(24, 29))
-_h2d_chunk_pick = 0  # last chunk size chosen; guarded-by: _routing_lock
 
 
 def _h2d_chunk_bytes() -> int:
@@ -483,7 +482,6 @@ def _h2d_chunk_bytes() -> int:
     buckets without enough observations do not compete), else the static
     64 MB default. Chunking never changes the concatenated bytes. The pick
     is surfaced as `h2d_chunk_bytes` in routing_stats."""
-    global _h2d_chunk_pick
     from ballista_tpu_torch.ops import costmodel
 
     best, best_rate = _H2D_CHUNK_BYTES, None
@@ -493,8 +491,7 @@ def _h2d_chunk_bytes() -> int:
             continue
         if best_rate is None or r < best_rate:
             best, best_rate = cand, r
-    with _routing_lock:
-        _h2d_chunk_pick = best
+    counters.routing.set("h2d_chunk_bytes", best)
     return best
 
 
@@ -657,101 +654,41 @@ def pipelined_map(src, fn, workers: int, depth: int = 2, on_src_time=None):
 
 
 # -- counters ---------------------------------------------------------------
-# ingest timings across stage prepares: scan_s = prefetch work (parquet read
-# + dictionary decode + group ranking), encode_s = host narrow/encode,
-# upload_s = h2d enqueue, wall_s = end-to-end prepare.
-_ingest_lock = make_lock("ops.runtime._ingest_lock")
-_ingest_totals = {  # guarded-by: _ingest_lock
-    "scan_s": 0.0, "encode_s": 0.0, "upload_s": 0.0, "wall_s": 0.0,
-    "prepares": 0,
-}
+# Every event-count set lives in utils/counters.py; this module keeps the
+# readback accounting and the routing recorders (which buffer in a routing
+# probe and consult the cost model), and re-exports each set's reader under
+# its `<set>_stats(reset)` name.
+ingest_stats = counters.ingest.stats
+delta_stats = counters.delta.stats
+serving_stats = counters.serving.stats
+recovery_stats = counters.recovery.stats
+tenancy_stats = counters.tenancy.stats
+shared_scan_stats = counters.shared_scan.stats
+shuffle_tier_stats = counters.shuffle_tier.stats
+exchange_stats = counters.exchange.stats
+speculation_stats = counters.speculation.stats
+fleet_stats = counters.fleet.stats
+
+_READBACK_KEYS = ("rows", "bytes", "readbacks")
 
 
-def record_ingest(scan_s: float, encode_s: float, upload_s: float,
-                  wall_s: float) -> None:
-    with _ingest_lock:
-        _ingest_totals["scan_s"] += scan_s
-        _ingest_totals["encode_s"] += encode_s
-        _ingest_totals["upload_s"] += upload_s
-        _ingest_totals["wall_s"] += wall_s
-        _ingest_totals["prepares"] += 1
+def record_readback(rows: int, nbytes: int, site: Optional[str] = None) -> None:
+    """One device->host transfer; a `site` also counts as "<site>.rows",
+    "<site>.bytes" and "<site>.readbacks" in counters.readback."""
+    deltas = {"rows": int(rows), "bytes": int(nbytes), "readbacks": 1}
+    if site:
+        deltas.update({f"{site}.{k}": n for k, n in list(deltas.items())})
+    counters.readback.add(deltas)
 
 
-def ingest_stats(reset: bool = False) -> Dict[str, float]:
-    with _ingest_lock:
-        out = dict(_ingest_totals)
-        if reset:
-            for k in _ingest_totals:
-                _ingest_totals[k] = 0.0 if k != "prepares" else 0
-    return out
-
-
-# incremental execution over the chunk-set delta store (ops/stage.py,
-# _prepare_partition_chunks), with the JAX package's event names:
-# "chunks_reused" (chunks loaded from the store), "chunks_prepared"
-# (chunks prepared fresh), "bytes_reprepared_saved" (host bytes of the
-# reused chunks) and "save_declined_midappend" (a file whose identity moved
-# between the stat and the read was not persisted)
-_delta_lock = make_lock("ops.runtime._delta_lock")
-_delta: Dict[str, int] = {}  # guarded-by: _delta_lock
-
-
-def record_delta(event: str, n: int = 1) -> None:
-    with _delta_lock:
-        _delta[event] = _delta.get(event, 0) + int(n)
-
-
-def delta_stats(reset: bool = False) -> Dict[str, int]:
-    with _delta_lock:
-        out = dict(_delta)
-        if reset:
-            _delta.clear()
-    return out
-
-
-# kernel library events (ops/cuda_kernels.py), named as the JAX package's
-# program cache names them where the meaning is the same:
-# "compile_hit_memory" (the library was loaded in this process),
-# "compile_hit_disk" (a keyed library from the build directory, no nvcc),
-# "compile_prewarmed" (loaded by prewarm) and "kernel_built" (one nvcc run)
-_serving_lock = make_lock("ops.runtime._serving_lock")
-_serving: Dict[str, int] = {}  # guarded-by: _serving_lock
-
-
-def record_serving(event: str, n: int = 1) -> None:
-    with _serving_lock:
-        _serving[event] = _serving.get(event, 0) + int(n)
-
-
-def serving_stats(reset: bool = False) -> Dict[str, int]:
-    with _serving_lock:
-        out = dict(_serving)
-        if reset:
-            _serving.clear()
-    return out
-
-
-# device->host result readbacks across stage runs: rows = trailing-axis
-# length of each fetched result (groups), bytes = transfer size, readbacks =
-# transfer count.
-_readback_lock = make_lock("ops.runtime._readback_lock")
-_readback_totals = {"rows": 0, "bytes": 0, "readbacks": 0}  # guarded-by: _readback_lock
-
-
-def record_readback(rows: int, nbytes: int) -> None:
-    with _readback_lock:
-        _readback_totals["rows"] += int(rows)
-        _readback_totals["bytes"] += int(nbytes)
-        _readback_totals["readbacks"] += 1
-
-
-def readback(x, rows: Optional[int] = None) -> np.ndarray:
+def readback(x, rows: Optional[int] = None, site: Optional[str] = None) -> np.ndarray:
     """Canonical device->host result materialization: tensor -> numpy plus
     the readback accounting in one step. `rows` defaults to the
-    trailing-axis length (the [R, G] result convention). With the cost
-    model on, the transfer's wall time lands in the cost store as a
-    per-byte "readback" observation; the producing work is synced first so
-    the timer measures the copy, not queued kernels."""
+    trailing-axis length (the [R, G] result convention); `site` tags the
+    transfer (record_readback). With the cost model on, the transfer's wall
+    time lands in the cost store as a per-byte "readback" observation; the
+    producing work is synced first so the timer measures the copy, not
+    queued kernels."""
     from ballista_tpu_torch.ops import costmodel
 
     t0 = None
@@ -767,18 +704,16 @@ def readback(x, rows: Optional[int] = None) -> np.ndarray:
         costmodel.observe("readback", arr.nbytes, time.perf_counter() - t0)
     record_readback(
         rows if rows is not None else (arr.shape[-1] if arr.ndim else 1),
-        arr.nbytes,
+        arr.nbytes, site,
     )
     return arr
 
 
 def readback_stats(reset: bool = False) -> Dict[str, int]:
-    with _readback_lock:
-        out = dict(_readback_totals)
-        if reset:
-            for k in _readback_totals:
-                _readback_totals[k] = 0
-    return out
+    """{"rows", "bytes", "readbacks"} over every readback (the site shares
+    are in counters.readback.stats())."""
+    out = counters.readback.stats(reset)
+    return {k: out[k] for k in _READBACK_KEYS}
 
 
 # which route each device-stage run took: "batches", "sorted" (the
@@ -793,40 +728,25 @@ def readback_stats(reset: bool = False) -> Dict[str, int]:
 # count beside them. A rung of the stage ladder that steps aside
 # (kernels.step_aside) counts its reason apart from host declines: the next
 # rung may still run the aggregate on the device.
-_routing_lock = make_lock("ops.runtime._routing_lock")
-_routes: Dict[str, int] = {}  # guarded-by: _routing_lock
-_decline_reasons: Dict[str, int] = {}  # guarded-by: _routing_lock
-_routing_events: Dict[str, int] = {}  # guarded-by: _routing_lock
-_step_asides: Dict[str, int] = {}  # guarded-by: _routing_lock
-# cost-model decisions (ops/costmodel.py): predicted and observed seconds
-# summed over the decisions that carried both, and the gross mispredicts
-_routing_costs = {  # guarded-by: _routing_lock
-    "predicted_s": 0.0, "observed_s": 0.0, "predictions": 0, "mispredicts": 0,
-}
-
-
 def record_route(route: str, reason: Optional[str] = None) -> None:
-    with _routing_lock:
-        _routes[route] = _routes.get(route, 0) + 1
-        if reason:
-            _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
+    deltas = {("routes", route): 1}
+    if reason:
+        deltas[("reasons", reason)] = 1
+    counters.routing.add(deltas)
 
 
 def record_routing_reason(reason: str) -> None:
     """A decline counted among the reasons with no stage route (a planning
     decision that left the device path before any stage ran)."""
-    with _routing_lock:
-        _decline_reasons[reason] = _decline_reasons.get(reason, 0) + 1
+    counters.routing.record(("reasons", reason))
 
 
 def record_routing_event(event: str, n: int = 1) -> None:
-    with _routing_lock:
-        _routing_events[event] = _routing_events.get(event, 0) + int(n)
+    counters.routing.record(("events", event), n)
 
 
 def record_step_aside(reason: str) -> None:
-    with _routing_lock:
-        _step_asides[reason] = _step_asides.get(reason, 0) + 1
+    counters.routing.record(("step_asides", reason))
 
 
 # speculative-attempt scope: the build-side swap (ops/join.py) runs the whole
@@ -895,15 +815,15 @@ def record_routing(engine: str, op: str, predicted_s: Optional[float] = None,
     if probe is not None:
         probe.buf.append(("routing", (engine, op, predicted_s, observed_s)))
         return
-    with _routing_lock:
-        k = f"{op}:{engine}"
-        _routing_events[k] = _routing_events.get(k, 0) + 1
-        if predicted_s is not None and observed_s is not None:
-            _routing_costs["predictions"] += 1
-            _routing_costs["predicted_s"] += float(predicted_s)
-            _routing_costs["observed_s"] += float(observed_s)
-            if gross_mispredict(predicted_s, observed_s):
-                _routing_costs["mispredicts"] += 1
+    deltas = {("events", f"{op}:{engine}"): 1}
+    if predicted_s is not None and observed_s is not None:
+        deltas.update({
+            ("costs", "predictions"): 1,
+            ("costs", "predicted_s"): float(predicted_s),
+            ("costs", "observed_s"): float(observed_s),
+            ("costs", "mispredicts"): int(gross_mispredict(predicted_s, observed_s)),
+        })
+    counters.routing.add(deltas)
 
 
 def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
@@ -911,22 +831,8 @@ def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
     "events": {event: n}, "step_asides": {step-aside reason: n},
     "costs": {"predicted_s", "observed_s", "predictions", "mispredicts"},
     "h2d_chunk_bytes": the last chunk size upload() picked (a value)}"""
-    global _h2d_chunk_pick
-    with _routing_lock:
-        out = {"routes": dict(_routes), "reasons": dict(_decline_reasons),
-               "events": dict(_routing_events),
-               "step_asides": dict(_step_asides),
-               "costs": dict(_routing_costs),
-               "h2d_chunk_bytes": _h2d_chunk_pick}
-        if reset:
-            _routes.clear()
-            _decline_reasons.clear()
-            _routing_events.clear()
-            _step_asides.clear()
-            _routing_costs.update(predicted_s=0.0, observed_s=0.0,
-                                  predictions=0, mispredicts=0)
-            _h2d_chunk_pick = 0
-    return out
+    return counters.routing.grouped(
+        ("routes", "reasons", "events", "step_asides", "costs"), reset)
 
 
 # join-path outcomes across join executions: every device-join attempt lands
@@ -935,93 +841,17 @@ def routing_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
 # "step_aside" (the multiplicity / gather admission declined and the host
 # join ran) or "host_fallback" (any other decline). Reasons count verbatim
 # as "path: reason", so a run says why a join left the device.
-_join_lock = make_lock("ops.runtime._join_lock")
-_join_paths: Dict[str, int] = {}  # guarded-by: _join_lock
-_join_reasons: Dict[str, int] = {}  # guarded-by: _join_lock
-
-
 def record_join_path(path: str, reason: Optional[str] = None) -> None:
     probe = getattr(_probe_tls, "probe", None)
     if probe is not None:
         probe.buf.append(("join_path", (path, reason)))
         return
-    with _join_lock:
-        _join_paths[path] = _join_paths.get(path, 0) + 1
-        if reason:
-            key = f"{path}: {reason}"
-            _join_reasons[key] = _join_reasons.get(key, 0) + 1
+    deltas = {("paths", path): 1}
+    if reason:
+        deltas[("reasons", f"{path}: {reason}")] = 1
+    counters.join_paths.add(deltas)
 
 
 def join_path_stats(reset: bool = False) -> Dict[str, Dict[str, int]]:
     """{"paths": {path: n}, "reasons": {"path: reason": n}}"""
-    with _join_lock:
-        out = {"paths": dict(_join_paths), "reasons": dict(_join_reasons)}
-        if reset:
-            _join_paths.clear()
-            _join_reasons.clear()
-    return out
-
-
-# -- distributed-path event counters -----------------------------------------
-# In-process accumulators of the scheduler, executors and client (the JAX
-# package's names and meanings, ops/runtime.py:769-1028). A standalone
-# cluster runs them all in one process; separate daemons each report their
-# own share.
-class _EventCounts:
-    """event -> count, behind its own lock. `whole` counters add int(n);
-    the others add n as given (seconds, gauges)."""
-
-    def __init__(self, whole: bool = True) -> None:
-        self._counts_lock = make_lock("ops.runtime._counts_lock")
-        self._counts: Dict[str, float] = {}  # guarded-by: self._counts_lock
-        self._whole = whole
-
-    def record(self, event: str, n: float = 1) -> None:
-        with self._counts_lock:
-            self._counts[event] = self._counts.get(event, 0) + (int(n) if self._whole else n)
-
-    def gauge(self, name: str, value: float) -> None:
-        """Overwrite a gauge, keeping its `_peak` sibling."""
-        with self._counts_lock:
-            self._counts[name] = value
-            peak = f"{name}_peak"
-            self._counts[peak] = max(self._counts.get(peak, value), value)
-
-    def stats(self, reset: bool = False) -> Dict[str, float]:
-        with self._counts_lock:
-            out = dict(self._counts)
-            if reset:
-                self._counts.clear()
-        return out
-
-
-# recovery work after injected or real faults (task_retry,
-# result_partition_restarted, scheduler_restart, ...)
-_recovery = _EventCounts()
-record_recovery, recovery_stats = _recovery.record, _recovery.stats
-# multi-tenant serving: result-cache hits / misses / puts / invalidations,
-# plan-cache hits, admission quota deferrals
-_tenancy = _EventCounts()
-record_tenancy, tenancy_stats = _tenancy.record, _tenancy.stats
-# shared-scan batches: scheduler-side formation (batches_formed,
-# batched_stages, ...) and the executor's solo members (member_solo)
-_shared_scan = _EventCounts()
-record_shared_scan, shared_scan_stats = _shared_scan.record, _shared_scan.stats
-# disaggregated shuffle tier: storage_publish / local_publish, storage_fetch
-# / peer_fetch, storage_fallback_peer, storage_publish_torn
-_shuffle_tier = _EventCounts()
-record_shuffle_tier, shuffle_tier_stats = _shuffle_tier.record, _shuffle_tier.stats
-# the exchange registry (ops/exchange.py): published / publish_bytes,
-# reupload_skipped / h2d_bytes_saved, served_from_registry /
-# d2h_bytes_saved, skipped_budget / evicted_budget, evicted_chaos,
-# locality_preferred, miss
-_exchange = _EventCounts()
-record_exchange, exchange_stats = _exchange.record, _exchange.stats
-# speculative execution: launched / won / lost / failed / promoted /
-# orphaned / executor_lost, wasted_seconds (a float), slo_misses / slo_met
-_speculation = _EventCounts(whole=False)
-record_speculation, speculation_stats = _speculation.record, _speculation.stats
-# elastic fleet: scale_up / scale_down / drain_* counts and the fleet_size /
-# backlog_ms gauges with their _peak siblings
-_fleet = _EventCounts(whole=False)
-record_fleet, record_fleet_gauge, fleet_stats = _fleet.record, _fleet.gauge, _fleet.stats
+    return counters.join_paths.grouped(("paths", "reasons"), reset)

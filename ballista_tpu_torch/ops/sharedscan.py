@@ -58,7 +58,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import pyarrow as pa
 
-from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice, record_shared_scan
+from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice
+from ballista_tpu_torch.utils import counters
 
 log = logging.getLogger("ballista.sharedscan")
 
@@ -231,7 +232,7 @@ def precompute(items, max_batch: int = 8) -> SharedResults:
     for plan, partition, ctx in items:
         m = _member_info(plan, partition, ctx)
         if m is None:
-            record_shared_scan("member_ineligible")
+            counters.shared_scan.record("member_ineligible")
             continue
         groups.setdefault(m.group_key, []).append(m)
     for g in groups.values():
@@ -246,7 +247,7 @@ def precompute(items, max_batch: int = 8) -> SharedResults:
                 _run_group(chunk, res)
             except UnsupportedOnDevice as e:
                 log.info("shared-scan group runs solo: %s", e)
-                record_shared_scan("batch_degraded")
+                counters.shared_scan.record("batch_degraded")
                 for m in chunk:
                     res.drop(m.node, m.partition)
     return res
@@ -348,7 +349,7 @@ def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
     def degrade(m: _Member) -> None:
         if m in live:
             live.remove(m)
-            record_shared_scan("member_degraded")
+            counters.shared_scan.record("member_degraded")
 
     # negotiated narrow choices for the shared staged columns (keyed by
     # shared column key): start from the widest of the members' priors (a
@@ -371,9 +372,9 @@ def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
             # any starting prior other than its own sends it solo
             members.remove(m)
             live.remove(m)
-            record_shared_scan("member_degraded")
+            counters.shared_scan.record("member_degraded")
     if len(live) < 2:
-        record_shared_scan("batch_degraded")
+        counters.shared_scan.record("batch_degraded")
         return
 
     batches: List[dict] = []
@@ -496,9 +497,9 @@ def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
             )
         batches.append({"staged": staged, "row_valid": row_valid, "recs": recs})
     if len(live) < 2:
-        record_shared_scan("batch_degraded")
+        counters.shared_scan.record("batch_degraded")
         return
-    record_shared_scan("shared_groups")
+    counters.shared_scan.record("shared_groups")
     tables: Dict[int, List[pa.Table]] = {id(m): [] for m in live}
     # per-member aux is batch-independent: built and uploaded once per group
     aux_by_member = {
@@ -538,8 +539,8 @@ def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
         if fuse_idx:
             step = _combined_step([recs[i][0].stage for i in fuse_idx])
             flat = readback(step([args[i] for i in fuse_idx], rv))
-            record_shared_scan("device_launches")
-            record_shared_scan("launches_saved", len(fuse_idx) - 1)
+            counters.shared_scan.record("device_launches")
+            counters.shared_scan.record("launches_saved", len(fuse_idx) - 1)
             off = 0
             for i in fuse_idx:
                 m, _cp, seg_bucket, _ng, _kv = recs[i]
@@ -552,8 +553,8 @@ def _run_group_locked(members: List[_Member], res: SharedResults) -> None:
             seg_bucket, cols, aux, codes = args[i]
             core = recs[i][0].stage._unrolled_core()
             blocks[i] = readback(core(seg_bucket, cols, aux, codes, rv))
-            record_shared_scan("device_launches")
-        record_shared_scan("uploads_saved", len(recs) - 1)
+            counters.shared_scan.record("device_launches")
+        counters.shared_scan.record("uploads_saved", len(recs) - 1)
         for block, (m, _cp, _sb, n_groups, key_values) in zip(blocks, recs):
             # the member's own decode and assembly: the solo readback path
             rows = m.stage._decode_stacked(block)

@@ -87,10 +87,16 @@ from ballista_tpu_torch.physical.basic import (
     ProjectionExec,
 )
 from ballista_tpu_torch.physical.scan import CsvScanExec, MemoryScanExec, ParquetScanExec
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 _SCAN_TYPES = (CsvScanExec, ParquetScanExec, MemoryScanExec)
+
+
+def _record_ingest(scan_s: float, encode_s: float, upload_s: float, wall_s: float) -> None:
+    """One stage prepare's ingest timings (counters.ingest)."""
+    counters.ingest.add({"scan_s": scan_s, "encode_s": encode_s, "upload_s": upload_s,
+                         "wall_s": wall_s, "prepares": 1})
 
 
 def plane_keys(idx: int) -> Tuple[int, int]:
@@ -1025,7 +1031,7 @@ class FusedAggregateStage:
         batch order."""
         import time as _time
 
-        from ballista_tpu_torch.ops.runtime import pipelined_map, record_ingest
+        from ballista_tpu_torch.ops.runtime import pipelined_map
 
         persisting = bool(self._store(ctx)) and self.persist_key is not None
         if (persisting and self.chunk_key_base is not None
@@ -1073,7 +1079,7 @@ class FusedAggregateStage:
             # the store write is host prepare work: counted as encode
             encode_s += _time.perf_counter() - t_save0
         scan_s += sum(src_times)
-        record_ingest(scan_s, encode_s, upload_s, _time.perf_counter() - t_wall0)
+        _record_ingest(scan_s, encode_s, upload_s, _time.perf_counter() - t_wall0)
         return entries
 
     def _stage_batch(self, batch: pa.RecordBatch, codes: np.ndarray, key_values,
@@ -1199,8 +1205,6 @@ class FusedAggregateStage:
         import os
         import time as _time
 
-        from ballista_tpu_torch.ops.runtime import record_delta, record_ingest
-
         t_wall0 = _time.perf_counter()
         if self.scan_stride is not None:
             total = self.scan.output_partitioning().partition_count()
@@ -1233,14 +1237,14 @@ class FusedAggregateStage:
                     entries.append(self._upload_record(rec, budget, totals))
                     reused += 1
                 totals["upload_s"] += _time.perf_counter() - t_up0
-                record_delta("chunks_reused", reused)
-                record_delta("bytes_reprepared_saved", nbytes)
+                counters.delta.record("chunks_reused", reused)
+                counters.delta.record("bytes_reprepared_saved", nbytes)
                 continue
             fresh = True
             self._prepare_file_chunks(p, ident, context, ctx, entries, totals, budget)
         if fresh:
-            record_ingest(totals["scan_s"], totals["encode_s"], totals["upload_s"],
-                          _time.perf_counter() - t_wall0)
+            _record_ingest(totals["scan_s"], totals["encode_s"], totals["upload_s"],
+                           _time.perf_counter() - t_wall0)
         return entries
 
     def _load_file_chunks(self, ident, context: str, ctx):
@@ -1298,7 +1302,7 @@ class FusedAggregateStage:
         import time as _time
 
         from ballista_tpu_torch.ops import layout_cache as lc
-        from ballista_tpu_torch.ops.runtime import pipelined_map, record_delta
+        from ballista_tpu_torch.ops.runtime import pipelined_map
 
         path = self.scan.source.files[p]
         t0 = _time.perf_counter()
@@ -1310,7 +1314,7 @@ class FusedAggregateStage:
                 st = os.stat(path)
                 if (str(st.st_mtime), int(st.st_size)) != (ident[1], ident[2]):
                     save = False
-                    record_delta("save_declined_midappend")
+                    counters.delta.record("save_declined_midappend")
             except OSError:
                 save = False
         base = self._store(ctx)
@@ -1362,7 +1366,7 @@ class FusedAggregateStage:
             t_up0 = _time.perf_counter()
             entries.append(self._upload_record(rec, budget, totals))
             totals["upload_s"] += _time.perf_counter() - t_up0
-            record_delta("chunks_prepared")
+            counters.delta.record("chunks_prepared")
         if not chunks:
             _save_chunk(0, None)
 
@@ -1412,8 +1416,6 @@ class FusedAggregateStage:
         import time as _time
 
         from ballista_tpu_torch.ops.layout import SortedSegmentLayout
-        from ballista_tpu_torch.ops.runtime import record_ingest
-
         # a persisted layout skips the scan, rank, sort and materialize
         loaded = self._load_layout(partition, ctx, want=("sorted",))
         if loaded is not None:
@@ -1433,7 +1435,7 @@ class FusedAggregateStage:
             out = self._prepare_pallas_sorted(batch, codes, key_values, n_groups, ctx)
             t_end = _time.perf_counter()
             # sort, lower and upload are one step here: counted as encode
-            record_ingest(scan_s, t_end - t_wall0 - scan_s, 0.0, t_end - t_wall0)
+            _record_ingest(scan_s, t_end - t_wall0 - scan_s, 0.0, t_end - t_wall0)
             return out
         layout = None
         if self.topk is not None and not self.sorted_cover_max:
@@ -1516,7 +1518,7 @@ class FusedAggregateStage:
         t_up0 = _time.perf_counter()
         out = self._finish_sorted(ctx, layout, staged, key_values, total, staged_derived)
         t_end = _time.perf_counter()
-        record_ingest(scan_s, t_up0 - t_wall0 - scan_s, t_end - t_up0, t_end - t_wall0)
+        _record_ingest(scan_s, t_up0 - t_wall0 - scan_s, t_end - t_up0, t_end - t_wall0)
         return out
 
     def _finish_sorted(self, ctx, layout, staged: Dict, key_values, total: int,

@@ -41,7 +41,7 @@ import numpy as np
 import pyarrow as pa
 
 from ballista_tpu_torch.logical.plan import JoinType
-from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice
+from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice, record_join_path, record_routing
 from ballista_tpu_torch.physical.plan import (
     ExecutionPlan,
     Partitioning,
@@ -166,7 +166,6 @@ class SpmdJoinExec(ExecutionPlan):
 
     # ------------------------------------------------------------------
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
-        from ballista_tpu_torch.ops.runtime import record_join_path, record_routing
         from ballista_tpu_torch.utils import tracing
 
         if partition != 0:
@@ -333,7 +332,6 @@ class SpmdJoinExec(ExecutionPlan):
         (multiplicity past the tiers, empty sides, the cost model). One
         collect and one join pass; no shuffle, no re-execution."""
         from ballista_tpu_torch.ops import costmodel
-        from ballista_tpu_torch.ops.runtime import record_join_path, record_routing
         from ballista_tpu_torch.physical.joinutil import join_indices, take_table
 
         record_routing("host", "join.mesh")

@@ -48,7 +48,11 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import pyarrow as pa
 
-from ballista_tpu_torch.ops.runtime import UnsupportedOnDevice
+from ballista_tpu_torch.ops.runtime import (
+    UnsupportedOnDevice,
+    record_routing,
+    record_routing_reason,
+)
 from ballista_tpu_torch.physical.plan import (
     ExecutionPlan,
     Partitioning,
@@ -284,7 +288,6 @@ class SpmdAggregateExec(ExecutionPlan):
 
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
         from ballista_tpu_torch.ops import costmodel
-        from ballista_tpu_torch.ops.runtime import record_routing, record_routing_reason
         from ballista_tpu_torch.utils import tracing
 
         if partition != 0:

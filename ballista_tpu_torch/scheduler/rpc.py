@@ -16,6 +16,7 @@ from typing import Optional
 import grpc
 
 from ballista_tpu_torch.proto import ballista_pb2 as pb
+from ballista_tpu_torch.utils import counters
 from ballista_tpu_torch.utils.locks import make_lock
 
 SERVICE_NAME = "ballista.SchedulerGrpc"
@@ -287,7 +288,6 @@ class SchedulerGrpcClient:
         throttle hint) even though their status code says otherwise;
         `metadata` goes with the call."""
         from ballista_tpu_torch.errors import RpcError
-        from ballista_tpu_torch.ops.runtime import record_recovery
         from ballista_tpu_torch.utils.chaos import ChaosInjected
 
         attempts = self.retries + 1
@@ -333,7 +333,7 @@ class SchedulerGrpcClient:
                     self._note_answered(idx, ch)
             if not transient or i + 1 >= attempts:
                 raise RpcError(f"{name} failed: {detail}") from err
-            record_recovery("rpc_retry")
+            counters.recovery.record("rpc_retry")
             # replica failover (ISSUE 20): try another endpoint before
             # sleeping — a dead or redirecting replica should cost one
             # backoff step, not the whole retry budget. An ownership

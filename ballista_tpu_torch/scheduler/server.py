@@ -36,7 +36,7 @@ from ballista_tpu_torch.scheduler.rpc import DRAINING_METADATA, add_scheduler_se
 from ballista_tpu_torch.scheduler.state import SchedulerState
 from ballista_tpu_torch.serde.arrow import schema_to_ipc
 from ballista_tpu_torch.serde.logical import plan_from_proto
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.scheduler")
@@ -195,10 +195,8 @@ class SchedulerServer:
         raise RuntimeError("scheduler crashed (chaos)")
 
     def _crash(self, context) -> None:
-        from ballista_tpu_torch.ops.runtime import record_recovery
-
-        record_recovery("chaos_injected")
-        record_recovery("chaos_scheduler_crash")
+        counters.recovery.record("chaos_injected")
+        counters.recovery.record("chaos_scheduler_crash")
         log.warning(
             "chaos[scheduler.crash]: scheduler dying after accepting "
             "status #%d", self._accepted_statuses,
@@ -324,8 +322,6 @@ class SchedulerServer:
         and only after a 2xTTL grace. The failure is a CAS against the
         exact queued bytes — racing the (resurrected) planner's atomic
         commit, exactly one of the two writes lands."""
-        from ballista_tpu_torch.ops.runtime import record_recovery
-
         state = self.state
         now = time.time()
         failed_n = 0
@@ -364,7 +360,7 @@ class SchedulerServer:
                 [(key, failed.SerializeToString())], compare=(key, raw)
             ):
                 failed_n += 1
-                record_recovery("queued_grace_failed")
+                counters.recovery.record("queued_grace_failed")
                 log.warning(
                     "queued job %s failed: planner replica %r lapsed "
                     "without committing", job_id, planner,
@@ -483,7 +479,6 @@ class SchedulerServer:
             raise ValueError("ExecuteQueryParams requires a plan or sql")
 
         from ballista_tpu_torch.config import BALLISTA_TENANT, BALLISTA_TENANT_PRIORITY
-        from ballista_tpu_torch.ops.runtime import record_tenancy
         from ballista_tpu_torch.scheduler.fingerprint import (
             plan_file_facts,
             plan_fingerprint,
@@ -511,7 +506,7 @@ class SchedulerServer:
             facts = plan_file_facts(plan)
             fp = plan_fingerprint(plan, settings, file_facts=facts)
         if fp is None and config.result_cache():
-            record_tenancy("cache_unkeyable")
+            counters.tenancy.record("cache_unkeyable")
 
         job_id = _job_id()
         # scheduler.job: from this receipt to the job's final status
@@ -594,7 +589,6 @@ class SchedulerServer:
             self._planning.discard(job_id)
 
     def _plan_job_guarded(self, job_id: str, plan, config, content_key=None) -> None:
-        from ballista_tpu_torch.ops.runtime import record_recovery
         from ballista_tpu_torch.utils.chaos import ChaosInjected
 
         limit = self.state.retry_limit(job_id)
@@ -627,7 +621,7 @@ class SchedulerServer:
                     )
                     self.state.save_job_metadata(job_id, failed)
                     return
-                record_recovery("plan_retry")
+                counters.recovery.record("plan_retry")
                 log.warning("planning job %s torn by chaos; retrying "
                             "(attempt %d)", job_id, attempt)
             except Exception as e:  # surface planning failure as job failure
@@ -649,7 +643,6 @@ class SchedulerServer:
         worker. Returns False to fall through to ordinary planning. A base
         that exists but cannot fold (float sums, DISTINCT, no total
         order…) is a recorded decline — never a silent one."""
-        from ballista_tpu_torch.ops.runtime import record_delta
         from ballista_tpu_torch.scheduler import delta as delta_mod
 
         base = self.state.result_cache_probe_advance(fp[0], facts)
@@ -657,7 +650,7 @@ class SchedulerServer:
             return False
         spec = delta_mod.fold_spec(plan)
         if spec is None:
-            record_delta("advance_declined")
+            counters.delta.record("advance_declined")
             return False
         new_files = delta_mod.new_scan_files(facts, list(base.scan_fact))
         if not new_files:
@@ -712,13 +705,12 @@ class SchedulerServer:
         import time as _time
 
         from ballista_tpu_torch.config import BALLISTA_DELTA_FOR
-        from ballista_tpu_torch.ops.runtime import record_delta
         from ballista_tpu_torch.scheduler import delta as delta_mod
 
         content_key = fp[0] if config.plan_cache() else None
 
         def fall_back(reason: str) -> None:
-            record_delta("advance_declined")
+            counters.delta.record("advance_declined")
             log.warning("advancement of job %s declined (%s); planning a "
                         "full recompute", job_id, reason)
             self._plan_job_safe(job_id, plan, config, content_key)
@@ -783,7 +775,7 @@ class SchedulerServer:
                     fp[1], fp[0], facts, ipc, base.advance_epoch
                 )
                 if published:
-                    record_delta("advance_hits")
+                    counters.delta.record("advance_hits")
                     completed = pb.JobStatus()
                     completed.completed.cached = True
                     completed.completed.inline_result = ipc
@@ -811,7 +803,6 @@ class SchedulerServer:
         (fresh tree per job — plan nodes are mutable) instead of re-running
         the optimizer, so N tenants submitting the same query plan once."""
         from ballista_tpu_torch.config import BALLISTA_TPU_COALESCE_AGG
-        from ballista_tpu_torch.ops.runtime import record_tenancy
         from ballista_tpu_torch.serde.physical import (
             phys_plan_from_proto,
             phys_plan_to_proto,
@@ -845,7 +836,7 @@ class SchedulerServer:
                         self.state._key("plancache", content_key)
                     )
                 else:
-                    record_tenancy("plan_cache_hit")
+                    counters.tenancy.record("plan_cache_hit")
                     if kv_hit:
                         self._plan_cache_insert(content_key, blob)
                     return plan_tree
@@ -1083,7 +1074,6 @@ class SchedulerServer:
         executor re-subscribes. Keyed on a generation-rotated per-process
         sequence (like scheduler.admit) so a restarted scheduler draws
         fresh verdicts."""
-        from ballista_tpu_torch.ops.runtime import record_recovery, record_serving
         from ballista_tpu_torch.utils.chaos import ChaosInjected
 
         if not self.push_enabled or self.crashed:
@@ -1107,7 +1097,6 @@ class SchedulerServer:
         per-subscriber stream tick calls this for its own stream only —
         pumping every subscriber from every tick would be O(N^2) idle KV
         traffic at 4Hz on the scheduler's one lock."""
-        from ballista_tpu_torch.ops.runtime import record_recovery, record_serving
         from ballista_tpu_torch.utils.chaos import ChaosInjected
 
         if not self.push_enabled or self.crashed or sub.closed.is_set():
@@ -1166,8 +1155,8 @@ class SchedulerServer:
                 "scheduler.push",
                 f"g{self.state.generation}/push{self._push_seq}",
             ):
-                record_recovery("chaos_injected")
-                record_recovery("chaos_push_torn")
+                counters.recovery.record("chaos_injected")
+                counters.recovery.record("chaos_push_torn")
                 log.warning(
                     "chaos[scheduler.push]: tearing delivery of "
                     "%s/%s/%s to %s (stream killed)",
@@ -1199,7 +1188,7 @@ class SchedulerServer:
                         (p2.job_id, p2.stage_id, p2.partition_id, st2.attempt)
                     )
             sub.queue.put(td)
-            record_serving("dispatch_push")
+            counters.serving.record("dispatch_push")
             pushed += 1
         return pushed
 
@@ -1302,10 +1291,8 @@ class SchedulerServer:
         self._note_withdrawn(executor_id, self.state.withdraw_unechoed(executor_id))
 
     def _note_withdrawn(self, executor_id: str, n: int) -> None:
-        from ballista_tpu_torch.ops.runtime import record_serving
-
         if n:
-            record_serving("push_withdrawn", n)
+            counters.serving.record("push_withdrawn", n)
             log.info("took back %d task(s) pushed to %s", n, executor_id)
             self._pump_pushes()
 
@@ -1437,8 +1424,6 @@ class SchedulerServer:
                     assigned = self.state.maybe_speculate(request.metadata.id)
                     speculative = assigned is not None
                 if assigned is not None:
-                    from ballista_tpu_torch.ops.runtime import record_serving
-
                     status, plan = assigned
                     result.task.CopyFrom(self._task_definition(status, plan))
                     result.task.speculative = speculative
@@ -1452,7 +1437,7 @@ class SchedulerServer:
                             result.task.siblings.add().CopyFrom(
                                 self._task_definition(st2, plan2)
                             )
-                    record_serving("dispatch_poll")
+                    counters.serving.record("dispatch_poll")
             for job_id in jobs:
                 self.state.synchronize_job_status(job_id)
             # accepted statuses may have completed upstream stages (or the
@@ -1460,10 +1445,8 @@ class SchedulerServer:
             # runnable work NOW instead of waiting for a subscriber tick
             self._pump_pushes()
             if foreign:
-                from ballista_tpu_torch.ops.runtime import record_recovery
-
                 job_id, holder = sorted(foreign.items())[0]
-                record_recovery("ownership_redirected")
+                counters.recovery.record("ownership_redirected")
                 detail = (
                     f"job {job_id} owned by peer replica "
                     f"{holder.replica_id!r} at {holder.addr}; re-home"
@@ -1499,9 +1482,7 @@ class SchedulerServer:
                         self._subscribers.pop(request.metadata.id, None)
                     if sub is not None:
                         sub.close()
-                    from ballista_tpu_torch.ops.runtime import record_recovery
-
-                    record_recovery("idle_rehomed")
+                    counters.recovery.record("idle_rehomed")
                     detail = (
                         f"job {job_id} owned by peer replica "
                         f"{holder.replica_id!r} at {holder.addr}; re-home"

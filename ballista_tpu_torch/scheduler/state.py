@@ -71,10 +71,11 @@ from ballista_tpu_torch.distributed.stages import (
     ShuffleReaderExec,
     ShuffleWriterExec,
 )
+from ballista_tpu_torch.ops.runtime import record_routing
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.scheduler.kv import KvBackend
 from ballista_tpu_torch.serde.physical import phys_plan_from_proto, phys_plan_to_proto
-from ballista_tpu_torch.utils import tracing
+from ballista_tpu_torch.utils import counters, tracing
 from ballista_tpu_torch.utils.locks import make_lock
 
 log = logging.getLogger("ballista.scheduler")
@@ -91,50 +92,6 @@ ORPHANED_ASSIGNMENT_GRACE_SECS = 3.0
 # autoscaling backlog (ISSUE 15): small enough that priors alone never
 # grow the fleet, nonzero so a deep cold queue still registers
 BACKLOG_COLD_TASK_SECONDS = 0.02
-
-
-def _record_recovery(event: str, n: int = 1) -> None:
-    # lazy: scheduler state must stay importable before the ops runtime
-    from ballista_tpu_torch.ops.runtime import record_recovery
-
-    record_recovery(event, n)
-
-
-def _record_tenancy(event: str, n: int = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_tenancy
-
-    record_tenancy(event, n)
-
-
-def _record_speculation(event: str, n: float = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_speculation
-
-    record_speculation(event, n)
-
-
-def _record_shared_scan(event: str, n: int = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_shared_scan
-
-    record_shared_scan(event, n)
-
-
-def _record_routing(engine: str, op: str = "", predicted_s=None,
-                    observed_s=None) -> None:
-    from ballista_tpu_torch.ops.runtime import record_routing
-
-    record_routing(engine, op, predicted_s, observed_s)
-
-
-def _record_delta(event: str, n: int = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_delta
-
-    record_delta(event, n)
-
-
-def _record_shuffle_tier(event: str, n: int = 1) -> None:
-    from ballista_tpu_torch.ops.runtime import record_shuffle_tier
-
-    record_shuffle_tier(event, n)
 
 
 def _attempts_error(t: pb.TaskStatus) -> str:
@@ -709,7 +666,7 @@ class SchedulerState:
                 leases=[(lk, minted, self._lease_ttl)],
             ):
                 self._owned[job_id] = minted
-                _record_recovery("lease_reminted")
+                counters.recovery.record("lease_reminted")
                 return True
         self._deposed(job_id)
         return False
@@ -723,7 +680,7 @@ class SchedulerState:
         self._owned.pop(job_id, None)
         self._deposed_jobs.add(job_id)
         self.fence_rejected += 1
-        _record_recovery("fence_rejected")
+        counters.recovery.record("fence_rejected")
         holder = self.job_lease(job_id)
         handed_over = len(
             self.kv.get_prefix(self._key("assignments", job_id) + "/")
@@ -766,7 +723,7 @@ class SchedulerState:
             return False
         self._owned[job_id] = minted
         self._deposed_jobs.discard(job_id)
-        _record_recovery("lease_adopted")
+        counters.recovery.record("lease_adopted")
         self.recover(jobs={job_id})
         return True
 
@@ -913,7 +870,7 @@ class SchedulerState:
             # superseded set died with the old process; the requeue
             # numbering floor covers its late reports regardless)
             self._spec_launches[key] = max(1, a.attempt - cur.attempt)
-            _record_speculation("restored")
+            counters.speculation.record("restored")
             bump("restart_speculation_restored")
 
     def recover(self, jobs=None) -> Dict[str, int]:
@@ -942,13 +899,13 @@ class SchedulerState:
           vouching poll, requeued through the normal retry path if nobody
           vouches in time.
 
-        Returns the recovery counters (also fed into ops.runtime so
+        Returns the recovery counters (also fed into counters.recovery so
         bench.py's `recovery` field picks them up). A fresh store returns
         {} without recording anything."""
         stats: Dict[str, int] = {}
 
         def bump(event: str) -> None:
-            _record_recovery(event)
+            counters.recovery.record(event)
             stats[event] = stats.get(event, 0) + 1
 
         now = time.monotonic()
@@ -1248,12 +1205,12 @@ class SchedulerState:
                     ],
                 )
         except ChaosInjected:
-            _record_recovery("chaos_injected")
-            _record_tenancy("cache_put_torn")
+            counters.recovery.record("chaos_injected")
+            counters.tenancy.record("cache_put_torn")
             log.warning("result-cache put torn by chaos (fp=%s...)",
                         fingerprint[:16])
             return False
-        _record_tenancy("cache_put")
+        counters.tenancy.record("cache_put")
         return True
 
     def _ensure_rc_count(self) -> int:
@@ -1330,7 +1287,7 @@ class SchedulerState:
                 self._gc_cached_result(v)
                 self.kv.delete(k)
                 evicted += 1
-                _record_tenancy("cache_evicted")
+                counters.tenancy.record("cache_evicted")
         # authoritative re-derivation: surviving others + the incoming entry
         self._rc_count = (len(live) - evicted) + 1
         if evicted:
@@ -1353,7 +1310,7 @@ class SchedulerState:
         key = self._key("resultcache", fingerprint)
         v = self.kv.get(key)
         if v is None:
-            _record_tenancy("cache_miss")
+            counters.tenancy.record("cache_miss")
             return None
         entry = pb.ResultCacheEntry()
         entry.ParseFromString(v)
@@ -1362,7 +1319,7 @@ class SchedulerState:
             # hit — a hot entry over stale-but-mtime-identical data still
             # re-executes once per TTL window
             self._result_cache_delete(fingerprint)
-            _record_tenancy("cache_expired")
+            counters.tenancy.record("cache_expired")
             log.info("result-cache entry %s... expired (ttl %.0fs)",
                      fingerprint[:16], self.config.result_cache_ttl_s())
             return None
@@ -1375,7 +1332,7 @@ class SchedulerState:
             )
             entry.last_hit = time.time()
             self.kv.put(key, entry.SerializeToString())
-            _record_tenancy("cache_hit")
+            counters.tenancy.record("cache_hit")
             return completed
         # storage-homed locations (ISSUE 15) outlive their producer: only
         # locations whose pieces live in an executor work dir need the
@@ -1387,7 +1344,7 @@ class SchedulerState:
         }:
             if self.get_executor_metadata(eid) is None:
                 self._result_cache_delete(fingerprint)
-                _record_tenancy("cache_invalidated")
+                counters.tenancy.record("cache_invalidated")
                 log.info(
                     "result-cache entry %s... invalidated (executor %s gone)",
                     fingerprint[:16], eid,
@@ -1400,12 +1357,12 @@ class SchedulerState:
         # durable as the cache itself (scheduler restarts keep it)
         entry.last_hit = time.time()
         self.kv.put(key, entry.SerializeToString())
-        _record_tenancy("cache_hit")
+        counters.tenancy.record("cache_hit")
         return completed
 
     def result_cache_invalidate(self, fingerprint: str) -> None:
         self._result_cache_delete(fingerprint)
-        _record_tenancy("cache_invalidated")
+        counters.tenancy.record("cache_invalidated")
 
     # -- result-cache advancement (ISSUE 19) ----------------------------------
     def result_cache_probe_advance(self, content_key: str, facts: List[str]):
@@ -1479,11 +1436,11 @@ class SchedulerState:
             if prior is not None:
                 self._gc_cached_result(prior)
         except ChaosInjected:
-            _record_recovery("chaos_injected")
+            counters.recovery.record("chaos_injected")
             log.warning("result-cache advancement torn by chaos (fp=%s...)",
                         result_key[:16])
             return False
-        _record_tenancy("cache_put")
+        counters.tenancy.record("cache_put")
         return True
 
     # -- shared-store GC (ISSUE 16 satellite) -------------------------------
@@ -1544,7 +1501,7 @@ class SchedulerState:
                 uri, stage, t.partition_id.partition_id, job_id=job_id
             )
         if swept:
-            _record_shuffle_tier("gc_stage_swept", swept)
+            counters.shuffle_tier.record("gc_stage_swept", swept)
             log.info(
                 "shared-store GC: swept %d piece dir(s) of job %s", swept,
                 job_id,
@@ -1580,7 +1537,7 @@ class SchedulerState:
                 uri, pl.partition_id.stage_id, pl.partition_id.partition_id
             )
         if swept:
-            _record_shuffle_tier("gc_result_swept", swept)
+            counters.shuffle_tier.record("gc_result_swept", swept)
             log.info(
                 "shared-store GC: swept %d cached-result piece dir(s)", swept
             )
@@ -1683,7 +1640,7 @@ class SchedulerState:
                 and status.attempt == current.attempt
                 and status.completed.executor_id == current.completed.executor_id
             ):
-                _record_recovery("stale_status_dropped")
+                counters.recovery.record("stale_status_dropped")
                 log.info(
                     "dropping late status for resolved task %s/%s/%s "
                     "(attempt %d%s; completion already stands)",
@@ -1693,7 +1650,7 @@ class SchedulerState:
                 )
                 return False
         if current is not None and status.attempt < current.attempt:
-            _record_recovery("stale_status_dropped")
+            counters.recovery.record("stale_status_dropped")
             log.info(
                 "dropping stale status for %s/%s/%s (attempt %d < %d)",
                 pid.job_id, pid.stage_id, pid.partition_id,
@@ -1717,7 +1674,7 @@ class SchedulerState:
             if not sup:
                 self._spec_superseded.pop(key3, None)
             if w in ("failed", "fetch_failed"):
-                _record_speculation("superseded_failed")
+                counters.speculation.record("superseded_failed")
                 if w == "fetch_failed":
                     # like a live duplicate's fetch failure: the named map
                     # output is gone for EVERY future consumer — recompute
@@ -1735,7 +1692,7 @@ class SchedulerState:
                 return False
             if w == "completed":
                 superseded_completion = True
-                _record_speculation("superseded_won")
+                counters.speculation.record("superseded_won")
         if spec is not None:
             spec_exec, spec_attempt, spec_t0, _v, _r = spec
             if status.attempt == spec_attempt and w in ("failed", "fetch_failed"):
@@ -1744,7 +1701,7 @@ class SchedulerState:
                 # duplicate never consumes the task's retry budget)
                 self._spec_del(key3)
                 self._spec_failed.setdefault(key3, set()).add(spec_exec)
-                _record_speculation("failed")
+                counters.speculation.record("failed")
                 if w == "fetch_failed":
                     # the report still carries actionable lineage: the named
                     # map output is gone for EVERY future consumer. Recompute
@@ -1769,8 +1726,8 @@ class SchedulerState:
                 now = time.monotonic()
                 if status.attempt == spec_attempt:
                     prim = self._running_since.get(key3)
-                    _record_speculation("won")
-                    _record_speculation(
+                    counters.speculation.record("won")
+                    counters.speculation.record(
                         "wasted_seconds",
                         now - (prim[2] if prim is not None else spec_t0),
                     )
@@ -1778,11 +1735,11 @@ class SchedulerState:
                     # an ABANDONED duplicate crossed the line first: still
                     # a speculative WIN (the duplicate rescued the task) —
                     # the live successor's effort is what got wasted
-                    _record_speculation("won")
-                    _record_speculation("wasted_seconds", now - spec_t0)
+                    counters.speculation.record("won")
+                    counters.speculation.record("wasted_seconds", now - spec_t0)
                 else:
-                    _record_speculation("lost")
-                    _record_speculation("wasted_seconds", now - spec_t0)
+                    counters.speculation.record("lost")
+                    counters.speculation.record("wasted_seconds", now - spec_t0)
                 self._spec_del(key3)
                 log.info(
                     "speculation resolved for %s/%s/%s: %s attempt %d won",
@@ -2033,7 +1990,7 @@ class SchedulerState:
             # it like any in-flight assignment
             self._ledger_put(key3, spec[0], spec[1])
             self._spec_del(key3)
-            _record_speculation("promoted")
+            counters.speculation.record("promoted")
             log.warning(
                 "promoted speculative attempt %d of %s/%s/%s on %s "
                 "(primary attempt %d lost: %s)",
@@ -2046,7 +2003,7 @@ class SchedulerState:
             # exhausted: the job fails — retire any in-flight duplicate's
             # record with it (its late report is dropped by the guards)
             if spec is not None:
-                _record_speculation("failed")
+                counters.speculation.record("failed")
             self._spec_resolve(key3)
             return False
         # any in-flight assignment of the superseded attempt is now stale;
@@ -2073,9 +2030,9 @@ class SchedulerState:
             return True
         self._ledger_del((pid0.job_id, pid0.stage_id, pid0.partition_id))
         if spec is not None:
-            _record_speculation("failed")
+            counters.speculation.record("failed")
         self._spec_resolve(key3)
-        _record_recovery("task_retry")
+        counters.recovery.record("task_retry")
         pid = t.partition_id
         log.warning(
             "requeued task %s/%s/%s for attempt %d (%s)",
@@ -2087,7 +2044,7 @@ class SchedulerState:
         failed = pb.JobStatus()
         failed.failed.error = error
         self.save_job_metadata(job_id, failed)
-        _record_recovery("job_failed_exhausted")
+        counters.recovery.record("job_failed_exhausted")
         log.error("job %s failed: %s", job_id, error)
 
     def get_job_stage_ids(self, job_id: str) -> List[int]:
@@ -2182,7 +2139,7 @@ class SchedulerState:
                 # invalidation, no task retries. (A piece that really did
                 # vanish from storage surfaces later as a reader's
                 # fetch_failed and recovers through lineage as usual.)
-                _record_recovery("storage_home_retained")
+                counters.recovery.record("storage_home_retained")
                 continue
             error = (
                 f"executor {owner} lease expired while the task ran"
@@ -2197,7 +2154,7 @@ class SchedulerState:
                 self._fail_job(job_id, _attempts_error(exhausted))
                 finished_jobs[job_id] = True
                 continue
-            _record_recovery("lost_task_reset")
+            counters.recovery.record("lost_task_reset")
             reset += 1
             if w == "completed":
                 lost_outputs.setdefault(job_id, set()).add(t.partition_id.stage_id)
@@ -2231,7 +2188,7 @@ class SchedulerState:
                         self._fail_job(job_id, _attempts_error(exhausted))
                         finished_jobs[job_id] = True
                         break
-                    _record_recovery("downstream_invalidated")
+                    counters.recovery.record("downstream_invalidated")
                     reset += 1
         # prune watch entries of finished jobs (ISSUE 11): a job that
         # failed with tasks still marked running would otherwise pin its
@@ -2260,7 +2217,7 @@ class SchedulerState:
         budget is exhausted (caller fails the job)."""
         ff = t.fetch_failed
         pid = t.partition_id
-        _record_recovery("fetch_failed")
+        counters.recovery.record("fetch_failed")
         reporter_error = (
             f"fetch_failed: shuffle output {ff.map_executor_id}:{ff.path} "
             f"(map {ff.map_stage_id}/{ff.map_partition_id}) unreachable: {ff.error}"
@@ -2297,7 +2254,7 @@ class SchedulerState:
                 f"shuffle output lost (fetch_failed reported by {reporter})",
                 limit,
             ):
-                _record_recovery("map_recomputed")
+                counters.recovery.record("map_recomputed")
 
     def restart_completed_job(self, job_id: str, executor_id: str) -> int:
         """Restart a job whose result partitions died with their executor
@@ -2346,13 +2303,13 @@ class SchedulerState:
                 exhausted.failed.executor_id = executor_id
                 self._fail_job(job_id, _attempts_error(exhausted))
                 return restarted
-            _record_recovery("result_partition_restarted")
+            counters.recovery.record("result_partition_restarted")
             restarted += 1
         if restarted and was_completed:
             running = pb.JobStatus()
             running.running.SetInParent()
             self.save_job_metadata(job_id, running)
-            _record_recovery("completed_job_restarted")
+            counters.recovery.record("completed_job_restarted")
         if restarted:
             log.warning(
                 "restarting job %s: %d result partition(s) lost with "
@@ -2620,13 +2577,13 @@ class SchedulerState:
             return
         del self._batches[bid]
         if b["dirty"]:
-            _record_routing("batch", "stage.batch")
+            record_routing("batch", "stage.batch")
             return
         wall = time.monotonic() - b["t0"]
         from ballista_tpu_torch.ops import costmodel
 
         costmodel.observe("stage.batch", float(b["k"]), wall, engine="task")
-        _record_routing("batch", "stage.batch", b["predicted"], wall)
+        record_routing("batch", "stage.batch", b["predicted"], wall)
 
     def _shared_scan_signature(self, plan) -> Optional[tuple]:
         """Cheap scan-sharing signature of one bound stage plan: non-None
@@ -2726,7 +2683,7 @@ class SchedulerState:
             # pollution the store's forgetting/retier self-heals — so the
             # bound sits far above any real in-flight population and the
             # drop is counted, never silent.
-            _record_routing("batch", "stage.batch.accounting_dropped")
+            record_routing("batch", "stage.batch.accounting_dropped")
             log.warning(
                 "shared-scan batch accounting overflowed (%d members); "
                 "dropped — solo task.run rates may be briefly polluted",
@@ -2804,8 +2761,8 @@ class SchedulerState:
         ]
         if predicted is not None and all(s is not None for s in solo):
             if predicted >= sum(solo):
-                _record_shared_scan("batch_gate_solo")
-                _record_routing("solo", "stage.batch")
+                counters.shared_scan.record("batch_gate_solo")
+                record_routing("solo", "stage.batch")
                 log.info(
                     "shared-scan gate: batch of %d predicted %.4fs >= solo "
                     "sum %.4fs; dispatching solo", k, predicted, sum(solo),
@@ -2821,7 +2778,7 @@ class SchedulerState:
             except ChaosInjected:
                 # torn BEFORE any write: the primary dispatches solo and
                 # the would-be siblings stay pending for the next slot
-                _record_shared_scan("batch_chaos_solo")
+                counters.shared_scan.record("batch_chaos_solo")
                 log.warning(
                     "chaos[scheduler.batch]: batch formation torn; "
                     "dispatching %s/%s/%s solo",
@@ -2871,8 +2828,8 @@ class SchedulerState:
         }
         for key in keys:
             self._batch_members[key] = bid
-        _record_shared_scan("batches_formed")
-        _record_shared_scan("batched_stages", k)
+        counters.shared_scan.record("batches_formed")
+        counters.shared_scan.record("batched_stages", k)
         log.info(
             "shared-scan batch %d: %d stages over one scan -> %s "
             "(primary %s/%s/%s)", bid, k, executor_id,
@@ -2908,7 +2865,7 @@ class SchedulerState:
             for k, entry in list(self._speculative.items()):
                 if entry[0] not in alive:
                     self._spec_del(k)
-                    _record_speculation("executor_lost")
+                    counters.speculation.record("executor_lost")
         job_live: Dict[str, bool] = {}
         inflight: Optional[Dict[str, int]] = None
         for key3 in self._straggler_candidates(now):
@@ -2963,7 +2920,7 @@ class SchedulerState:
                 if inflight is None:
                     inflight = self._tenant_inflight(self._ensure_task_index())
                 if inflight.get(tenant, 0) >= self._tenant_quota:
-                    _record_tenancy("speculate_quota_deferred")
+                    counters.tenancy.record("speculate_quota_deferred")
                     continue
             # re-verify from the KV before dispatching: the watch map is
             # in-memory and a peer (or a racing status) may have moved on
@@ -3005,13 +2962,13 @@ class SchedulerState:
                 dup.attempt = spec[1] + 1
                 self._spec_superseded.setdefault(key3, set()).add(spec[1])
                 self._spec_launches[key3] = self._spec_launches.get(key3, 1) + 1
-                _record_speculation("relaunched")
+                counters.speculation.record("relaunched")
             else:
                 dup.attempt = cur.attempt + 1
                 self._spec_launches[key3] = 1
             self._spec_put(key3, executor_id, dup.attempt)
             self.note_tenant_assigned(self.job_tenant(job_id)[0])
-            _record_speculation("launched")
+            counters.speculation.record("launched")
             log.warning(
                 "speculating %s/%s/%s on %s (attempt %d%s): elapsed %.3fs > "
                 "%.1fx predicted %.3fs (primary %s)",
@@ -3040,12 +2997,12 @@ class SchedulerState:
         if slo is None or created <= 0.0:
             return
         if (time.time() - created) * 1000.0 > slo:
-            _record_speculation("slo_misses")
+            counters.speculation.record("slo_misses")
             log.warning(
                 "job %s (tenant %s) missed its %.0fms SLO", job_id, tenant, slo
             )
         else:
-            _record_speculation("slo_met")
+            counters.speculation.record("slo_met")
 
     def _tenant_inflight(self, idx: _TaskIndex) -> Dict[str, int]:
         """Per-tenant totals of currently RUNNING tasks, via the index's
@@ -3112,7 +3069,7 @@ class SchedulerState:
                         # long enough that the prior episode ended (a
                         # sub-5s gap is a stage boundary draining the
                         # pending set, not relief)
-                        _record_tenancy("admit_slo_boosted")
+                        counters.tenancy.record("admit_slo_boosted")
                     self._slo_boosted[tenant] = now
             for t in by_tenant:
                 # evaluated this scan and NOT overdue: episode over
@@ -3128,7 +3085,7 @@ class SchedulerState:
         )
         for tenant in tenant_rank:
             if quota > 0 and inflight.get(tenant, 0) >= quota:
-                _record_tenancy("admit_quota_deferred")
+                counters.tenancy.record("admit_quota_deferred")
                 continue
             order.extend(sorted(
                 by_tenant[tenant],
@@ -3228,9 +3185,7 @@ class SchedulerState:
                 running.running.executor_id = executor_id
                 if partition in resident_pref:
                     # the pick landed where its inputs are HBM-resident
-                    from ballista_tpu_torch.ops.runtime import record_exchange
-
-                    record_exchange("locality_preferred")
+                    counters.exchange.record("locality_preferred")
                 if not self.save_task_status(running):
                     # fenced out mid-assignment (ISSUE 20): a peer adopted
                     # the job between the liveness check and the claim —
@@ -3288,11 +3243,11 @@ class SchedulerState:
                 if not vouched:
                     self._speculative[key] = (ex, at, t0, True, restored)
                     if restored:
-                        _record_recovery("restart_speculation_readopted")
+                        counters.recovery.record("restart_speculation_readopted")
                 continue
             if not vouched and now - t0 > ORPHANED_ASSIGNMENT_GRACE_SECS:
                 self._spec_del(key)
-                _record_speculation("orphaned")
+                counters.speculation.record("orphaned")
                 log.warning(
                     "speculative attempt %d of %s/%s/%s never reached %s; "
                     "dropped (primary still runs)",
@@ -3314,7 +3269,7 @@ class SchedulerState:
                 # status/lease machinery takes over from here
                 self._ledger_del(key)
                 if restored:
-                    _record_recovery("restart_readopted")
+                    counters.recovery.record("restart_readopted")
                     log.info(
                         "restart reconciliation: executor %s re-adopted "
                         "task %s/%s/%s (attempt %d)",
@@ -3347,7 +3302,7 @@ class SchedulerState:
                 "(PollWork response lost in transit)"
             )
             if self.requeue_task(cur, owner, error, self.retry_limit(key[0])):
-                _record_recovery("orphan_reassigned")
+                counters.recovery.record("orphan_reassigned")
                 reclaimed += 1
             else:
                 exhausted = pb.TaskStatus()
@@ -3400,7 +3355,7 @@ class SchedulerState:
                 all_completed = False
         if any_failed is not None:
             status.failed.error = any_failed
-            _record_recovery("job_failed_exhausted")
+            counters.recovery.record("job_failed_exhausted")
         elif all_completed:
             final_stage = max(t.partition_id.stage_id for t in tasks)
             for t in sorted(tasks, key=lambda t: t.partition_id.partition_id):

@@ -25,6 +25,7 @@ import logging
 from typing import Optional
 
 from ballista_tpu_torch.errors import RpcError
+from ballista_tpu_torch.utils import counters
 
 log = logging.getLogger("ballista.chaos")
 
@@ -183,9 +184,7 @@ class ChaosInjector:
     def maybe_fail(self, site: str, key: str) -> None:
         """Raise ChaosInjected iff should_inject — the one raising seam."""
         if self.should_inject(site, key):
-            from ballista_tpu_torch.ops.runtime import record_recovery
-
-            record_recovery("chaos_injected")
+            counters.recovery.record("chaos_injected")
             log.warning("chaos[%s] injecting fault (key=%s)", site, key)
             raise ChaosInjected(site, key)
 

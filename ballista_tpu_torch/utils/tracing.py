@@ -25,7 +25,8 @@ the program's spans beside it on one clock.
 A span never stays open across a `yield`: the operators are generators,
 and a span left open there would unbalance its thread's stack.
 
-`incr()` and `counters()` are always on."""
+`incr()` and `counters()`, the registry's `named` counter set
+(utils/counters.py), are always on."""
 
 from __future__ import annotations
 
@@ -41,9 +42,12 @@ import threading
 import time
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
+from ballista_tpu_torch.utils import counters as _counters
 from ballista_tpu_torch.utils.locks import make_lock
 
-RING = 1 << 16  # records kept (a traced 51 s window of the hot cell records about 1,200)
+# records kept: a traced 51 s window of the hot cell runs about 1,150
+# queries of 8-9 spans each, some 10,000 records
+RING = 1 << 16
 
 
 class Span(NamedTuple):
@@ -62,7 +66,6 @@ _local = threading.local()
 _ring: "collections.deque[Span]" = collections.deque(maxlen=RING)  # guarded-by: _mu
 _totals: Dict[str, List[int]] = {}  # name -> [count, total ns, self ns]; guarded-by: _mu
 _marks: "collections.OrderedDict" = collections.OrderedDict()  # guarded-by: _mu
-_counters: Dict[str, int] = {}  # guarded-by: _mu
 _stacks: Dict[int, list] = {}  # thread ident -> its span stack; guarded-by: _mu
 _mu = make_lock("utils.tracing._mu")
 _query: contextvars.ContextVar = contextvars.ContextVar("ballista_query", default=None)
@@ -250,14 +253,13 @@ if os.environ.get("BALLISTA_TRACE_DIR"):
 
 # -- counters -----------------------------------------------------------------
 def incr(name: str, by: int = 1) -> None:
-    """Monotonic named counter (e.g. spmd.mesh against spmd.host_declined)."""
-    with _mu:
-        _counters[name] = _counters.get(name, 0) + by
+    """Monotonic named counter (e.g. spmd.mesh against spmd.host_declined),
+    in the registry's `named` set (utils/counters.py)."""
+    _counters.named.record(name, by)
 
 
 def counters() -> Dict[str, int]:
-    with _mu:
-        return dict(_counters)
+    return _counters.named.stats()
 
 
 def reset() -> None:
@@ -265,4 +267,4 @@ def reset() -> None:
         _ring.clear()
         _totals.clear()
         _marks.clear()
-        _counters.clear()
+    _counters.named.stats(reset=True)

@@ -63,8 +63,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (runtime.join_path_stats, every non-"device" path with its reason),
    q3, q5 and q10 must record at least one "device" join, and the readback
    rules above hold for the stage's own step: the join module's readbacks
-   (ops/join.py::readback_stats) are subtracted from the totals, cold and
-   warm, whether a warm run joins again or not.
+   (the "join.*" keys of utils/counters.py's readback set) are subtracted
+   from the totals, cold and warm, whether a warm run joins again or not.
 7. tpch: the nine TPC-H queries no other phase runs in full (q2, q11,
    q13, q15, q16, q17, q20, q21, q22) at --sf, one cold and three warm runs
    each, every answer held against the "cpu" backend under the tolerance
@@ -731,17 +731,26 @@ def _stage_reads(reads: dict, join_reads: dict) -> dict:
     return {k: reads[k] - join_reads[k] for k in reads}
 
 
+def _readbacks(reset: bool = True) -> tuple:
+    """(every readback, the device join's share) in one read: the plain
+    keys of counters.readback and its "join.*" keys (ops/join.py tags its
+    readbacks with the site "join")."""
+    from ballista_tpu_torch.utils import counters
+
+    out = counters.readback.stats(reset)
+    keys = ("rows", "bytes", "readbacks")
+    return {k: out[k] for k in keys}, {k: out.get(f"join.{k}", 0) for k in keys}
+
+
 def _reset_counters() -> None:
     from ballista_tpu_torch.ops import costmodel, runtime
-    from ballista_tpu_torch.ops import join as device_join
     from ballista_tpu_torch.utils import tracing
 
     costmodel.reset()
     runtime.routing_stats(reset=True)
-    runtime.readback_stats(reset=True)
+    runtime.readback_stats(reset=True)  # the join's share with it
     runtime.ingest_stats(reset=True)
     runtime.join_path_stats(reset=True)
-    device_join.readback_stats(reset=True)
     tracing.reset()
 
 
@@ -754,7 +763,6 @@ def phase_joins(data_dir: str):
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine import ExecutionContext
     from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
-    from ballista_tpu_torch.ops import join as device_join
     from ballista_tpu_torch.utils import tracing
 
     base = BASE
@@ -774,8 +782,7 @@ def phase_joins(data_dir: str):
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         routes = runtime.routing_stats()
-        reads = runtime.readback_stats(reset=True)
-        join_reads = device_join.readback_stats(reset=True)
+        reads, join_reads = _readbacks()
         joins = runtime.join_path_stats(reset=True)
         ingest = runtime.ingest_stats()
         dim_ms = sum(dt for path, dt, _ in tracing.spans()
@@ -807,8 +814,7 @@ def phase_joins(data_dir: str):
             # warm runs find the stage and its resident layout again
             fail(f"q18: {warm_prepares} prepares over 5 warm runs")
         warm_routes = runtime.routing_stats(reset=True)
-        warm_reads = runtime.readback_stats(reset=True)
-        warm_join_reads = device_join.readback_stats(reset=True)
+        warm_reads, warm_join_reads = _readbacks()
         warm_joins = runtime.join_path_stats(reset=True)
         if warm_routes["routes"].get("host") or warm_routes["reasons"]:
             fail(f"{name}: a warm run declined to the host: {warm_routes}")
@@ -859,7 +865,6 @@ def phase_tpch(data_dir: str):
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine import ExecutionContext
     from ballista_tpu_torch.ops import cuda_kernels, kernels, runtime
-    from ballista_tpu_torch.ops import join as device_join
     from ballista_tpu_torch.utils import tracing
 
     host_ctx = ExecutionContext(BallistaConfig({**BASE, "ballista.executor.backend": "cpu"}))
@@ -877,8 +882,7 @@ def phase_tpch(data_dir: str):
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         routes = runtime.routing_stats(reset=True)
-        reads = runtime.readback_stats(reset=True)
-        join_reads = device_join.readback_stats(reset=True)
+        reads, join_reads = _readbacks()
         joins = runtime.join_path_stats(reset=True)
         count_joins = tracing.counters().get("device.count_join", 0)
         _check_join_paths(name, joins)
@@ -1010,12 +1014,12 @@ def phase_join_shapes(seed: int, sf: float):
         for op, units, secs, engine in seeds:
             costmodel.seed(op, units, secs, engine=engine)
         runtime.join_path_stats(reset=True)
-        device_join.readback_stats(reset=True)
+        _readbacks()
         t0 = time.perf_counter()
         got = device_join.device_join_indices(build, probe, dev, config)
         first_ms = (time.perf_counter() - t0) * 1e3
         paths = runtime.join_path_stats(reset=True)
-        reads = device_join.readback_stats(reset=True)
+        _, reads = _readbacks()
         if got is None:
             fail(f"join shape {name}: the device declined: {paths}")
         t0 = time.perf_counter()
@@ -1047,7 +1051,7 @@ def phase_join_shapes(seed: int, sf: float):
         membership_ms = _host_ms(
             lambda: device_join.device_membership_counts(build, probe, dev))
         runtime.join_path_stats(reset=True)
-        device_join.readback_stats(reset=True)
+        _readbacks()
         results[name] = {
             "build_rows": int(len(build)), "probe_rows": int(len(probe)),
             "probe_slots": slots, "max_multiplicity": int(want_counts.max()),

@@ -260,7 +260,7 @@ def test_port_graph_is_declared_forward_and_acyclic():
     edges = static_edges([str(PKG)], use_cache=False)
     for e in (
         ("scheduler.kv.lock", "scheduler.state._tenant_mu"),
-        ("scheduler.kv.lock", "ops.runtime._counts_lock"),
+        ("scheduler.kv.lock", "utils.counters._counts_lock"),
         ("ops.stage._prepare_lock", "ops.runtime._res_lock"),
         ("ops.kernels._stage_cache_lock", "ops.runtime._res_lock"),
     ):
@@ -277,35 +277,38 @@ def test_port_graph_is_declared_forward_and_acyclic():
 
 
 def test_method_alias_calls_resolve_to_the_method():
-    """`record_x = _inst.record` at module level: a caller of record_x
+    """`x_stats = counters.x.stats` at module level: a caller of x_stats
     under a lock gets the edge to the lock the method takes (the port's
-    runtime counters are such aliases)."""
+    runtime re-exports its counter readers as such aliases)."""
     from ballista_tpu_torch.analysis.core import SourceFile
     from ballista_tpu_torch.analysis.rules_lockorder import build_graph, extract_facts
 
     srcs = {
-        "ballista_tpu_torch/ops/counters.py": """
+        "ballista_tpu_torch/utils/counters.py": """
             from ballista_tpu_torch.utils.locks import make_lock
-            class _Counts:
+            class Counts:
                 def __init__(self):
-                    self._counts_lock = make_lock("ops.counters._counts_lock")
-                def record(self, event):
+                    self._counts_lock = make_lock("utils.counters._counts_lock")
+                def stats(self):
                     with self._counts_lock:
                         pass
-            _inst = _Counts()
-            record_x, record_y = _inst.record, _inst.record
+            recovery = Counts()
+        """,
+        "ballista_tpu_torch/ops/runtime.py": """
+            from ballista_tpu_torch.utils import counters
+            recovery_stats, other_stats = counters.recovery.stats, counters.recovery.stats
         """,
         "ballista_tpu_torch/scheduler/user.py": """
-            from ballista_tpu_torch.ops.counters import record_x
+            from ballista_tpu_torch.ops import runtime
             def f(self):
                 with self.kv.lock():
-                    record_x("e")
+                    runtime.other_stats()
         """,
     }
     facts = {p: extract_facts(SourceFile(p, textwrap.dedent(s), p))
              for p, s in srcs.items()}
     graph, _ = build_graph(facts)
-    assert ("scheduler.kv.lock", "ops.counters._counts_lock") in graph.edge_set()
+    assert ("scheduler.kv.lock", "utils.counters._counts_lock") in graph.edge_set()
 
 
 # -- standing alone -----------------------------------------------------------

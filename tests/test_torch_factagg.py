@@ -42,12 +42,9 @@ def _fresh():
     jk._stage_cache_pins.clear()
     jk._stage_latest.clear()
     jr.reset_residency()
-    from ballista_tpu_torch.ops import join as tj
-
     tk.clear_stage_cache()
-    tr.readback_stats(reset=True)
+    tr.readback_stats(reset=True)  # the join site's share with it
     tr.routing_stats(reset=True)
-    tj.readback_stats(reset=True)
 
 
 def _stages(cache):
@@ -70,11 +67,11 @@ def _stages(cache):
 def _run_both(paths, sql):
     """(JAX result, JAX stages, port result, port stages, port routing,
     the port stage's own readbacks: the totals less the dim side's device
-    joins, ops/join.py::readback_stats)."""
+    joins, the "join.*" keys of counters.readback)."""
     from ballista_tpu.ops import kernels as jk
-    from ballista_tpu_torch.ops import join as tj
     from ballista_tpu_torch.ops import kernels as tk
     from ballista_tpu_torch.ops import runtime as tr
+    from ballista_tpu_torch.utils import counters
 
     _fresh()
     jctx = JaxContext(JaxConfig(JAX_REFERENCE))
@@ -85,9 +82,10 @@ def _run_both(paths, sql):
         pctx.register_parquet(name, p)
     jout = jctx.sql(sql).collect()
     pout = pctx.sql(sql).collect()
-    reads, joins = tr.readback_stats(reset=True), tj.readback_stats(reset=True)
+    reads = counters.readback.stats(reset=True)
     return (jout, _stages(jk._stage_cache), pout, _stages(tk._stage_cache),
-            tr.routing_stats(reset=True), {k: reads[k] - joins[k] for k in reads})
+            tr.routing_stats(reset=True),
+            {k: reads[k] - reads.get(f"join.{k}", 0) for k in ("rows", "bytes", "readbacks")})
 
 
 def _assert_same(jout, pout, rtol=RTOL, atol=ATOL):

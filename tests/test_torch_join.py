@@ -31,6 +31,7 @@ from ballista_tpu_torch.ops import join as tj
 from ballista_tpu_torch.ops import kernels as tk
 from ballista_tpu_torch.ops import runtime as tr
 from ballista_tpu_torch.physical.joinutil import join_indices
+from ballista_tpu_torch.utils import counters
 
 CPU = torch.device("cpu")
 TOP_TIER = tk.JOIN_MULTIPLICITY_TIERS[-1]
@@ -228,9 +229,10 @@ def test_membership_counts_readback_matches_reference(monkeypatch):
     jj.device_membership_counts(build, probe)
     want = jr.readback_stats(reset=True)
     tr.readback_stats(reset=True)
-    tj.readback_stats(reset=True)
     tj.device_membership_counts(build, probe, CPU)
-    assert tr.readback_stats(reset=True) == tj.readback_stats(reset=True) == want
+    # the join's share: its readbacks carry the site "join"
+    got = counters.readback.stats()
+    assert {k: got[f"join.{k}"] for k in want} == tr.readback_stats(reset=True) == want
     assert want == {"rows": 512, "bytes": 512 * 4, "readbacks": 1}
 
 

@@ -63,21 +63,21 @@ def test_witness_loads_the_port_manifest():
     assert ranks == Manifest.load(str(path)).rank
     # the port's own lock classes are ranked; the JAX package's
     # per-counter locks, which the port has no counterpart of, are not
-    for name in ("ops.runtime._counts_lock", "ops.cuda_kernels._build_lock",
-                 "ops.join._readback_lock"):
+    for name in ("utils.counters._counts_lock", "ops.cuda_kernels._build_lock",
+                 "utils.tracing._mu"):
         assert name in ranks, name
     assert "ops.runtime._recovery_lock" not in ranks
     assert "ops.stage._prepare_lock" in plan and plan <= tree
 
 
 def test_witness_asserts_an_inversion_of_the_port_order(witness):
-    counts = locks.make_lock("ops.runtime._counts_lock")
+    counts = locks.make_lock("utils.counters._counts_lock")
     kv = locks.make_rlock("scheduler.kv.lock")
     with kv:
         with counts:
             pass
     assert witness.witness_edges() == {
-        ("scheduler.kv.lock", "ops.runtime._counts_lock"): 1
+        ("scheduler.kv.lock", "utils.counters._counts_lock"): 1
     }
     with pytest.raises(locks.LockOrderViolation, match="inversion"):
         with counts:
@@ -90,20 +90,20 @@ def test_witness_asserts_an_inversion_of_the_port_order(witness):
 def test_every_port_lock_is_a_witness_lock():
     """Each lock the port creates at import is a WitnessLock under its
     canonical name, so the witness sees it."""
-    from ballista_tpu_torch.ops import costmodel, cuda_kernels, join, kernels, \
+    from ballista_tpu_torch.ops import costmodel, cuda_kernels, kernels, \
         layout_cache, runtime
     from ballista_tpu_torch.physical import scan
-    from ballista_tpu_torch.utils import tracing
+    from ballista_tpu_torch.utils import counters, tracing
 
     for obj, name in (
         (costmodel._lock, "ops.costmodel._lock"),
         (cuda_kernels._build_lock, "ops.cuda_kernels._build_lock"),
-        (join._readback_lock, "ops.join._readback_lock"),
+        (counters.readback._counts_lock, "utils.counters._counts_lock"),
         (kernels._stage_cache_lock, "ops.kernels._stage_cache_lock"),
         (layout_cache._size_lock, "ops.layout_cache._size_lock"),
         (runtime._res_lock, "ops.runtime._res_lock"),
-        (runtime._routing_lock, "ops.runtime._routing_lock"),
-        (runtime._recovery._counts_lock, "ops.runtime._counts_lock"),
+        (counters.routing._counts_lock, "utils.counters._counts_lock"),
+        (counters.recovery._counts_lock, "utils.counters._counts_lock"),
         (runtime.ColumnDictionary()._lock, "ops.runtime._lock"),
         (scan._TABLE_CACHE_MU, "physical.scan._TABLE_CACHE_MU"),
         (tracing._mu, "utils.tracing._mu"),
@@ -148,7 +148,7 @@ def test_subprocess_dumps_are_pid_suffixed_and_merged(tmp_path):
     out = tmp_path / "w.json"
     env = dict(os.environ, BALLISTA_LOCK_WITNESS="1",
                BALLISTA_LOCK_WITNESS_OUT=str(out), PYTHONPATH=str(REPO))
-    for dst in ("scheduler.state._tenant_mu", "ops.runtime._counts_lock"):
+    for dst in ("scheduler.state._tenant_mu", "utils.counters._counts_lock"):
         proc = subprocess.run([sys.executable, "-c", _CHILD, dst], cwd=str(REPO),
                               capture_output=True, text=True, env=env)
         assert proc.returncode == 0, proc.stderr

@@ -97,9 +97,9 @@ def _run_both(tpch_dir, name, settings, monkeypatch):
     from ballista_tpu.ops import join as jj
     from ballista_tpu.ops import kernels as jk
     from ballista_tpu.ops import runtime as jr
-    from ballista_tpu_torch.ops import join as tj
     from ballista_tpu_torch.ops import kernels as tk
     from ballista_tpu_torch.ops import runtime as tr
+    from ballista_tpu_torch.utils import counters
 
     jjoin_reads = {"rows": 0, "bytes": 0, "readbacks": 0}
 
@@ -131,9 +131,12 @@ def _run_both(tpch_dir, name, settings, monkeypatch):
     tr.routing_stats(reset=True)
     tr.readback_stats(reset=True)
     tr.join_path_stats(reset=True)
-    tj.readback_stats(reset=True)
     pout = pctx.sql(sql).collect()
-    preads = {**tr.readback_stats(reset=True), "joins": tj.readback_stats(reset=True)}
+    # the join module's share: its readbacks carry the site "join"
+    reads = counters.readback.stats(reset=True)
+    keys = ("rows", "bytes", "readbacks")
+    preads = {**{k: reads[k] for k in keys},
+              "joins": {k: reads.get(f"join.{k}", 0) for k in keys}}
     return (jout, pout, jreads, preads, jjoins,
             tr.join_path_stats(reset=True), tr.routing_stats(reset=True))
 
