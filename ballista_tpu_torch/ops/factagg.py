@@ -70,6 +70,7 @@ from ballista_tpu_torch.ops.stage import (
     FusedAggregateStage,
     _SCAN_TYPES,
     expand_clen,
+    plan_data_identity,
     state_column,
     substitute_columns,
 )
@@ -446,6 +447,7 @@ class FactAggregateStage:
             sec["f2_scan_idx"] = f2_scan.index
             self._sec_map = None  # (sorted base S_KEYs, their S_ATTRs)
             self.inner.derive_columns["sec_attr"] = self._derive_sec_attr
+            self.inner.derive_identity["sec_attr"] = self._sec_attr_identity
         self.partial_schema = FusedAggregateStage._partial_schema(agg)
         # planner-provided Sort+Limit epilogue (physical/planner.py)
         self.topk = getattr(agg, "_topk_pushdown", None)
@@ -575,6 +577,16 @@ class FactAggregateStage:
         if len(np.unique(ks)) != len(ks):
             raise UnsupportedOnDevice("secondary key not unique")
         self._sec_map = (ks.astype(np.int64), a[order].astype(np.int32))
+
+    def _sec_attr_identity(self) -> Optional[str]:
+        """What the derived column is a function of besides the fact's own
+        columns: the unfiltered secondary base (its display and files) and
+        the key pair that maps F2 to S_ATTR through it."""
+        sec = self.secondary
+        base = plan_data_identity(sec["base"])
+        if base is None:
+            return None
+        return f"{sec['f2']}->{sec['s_key']}:{sec['s_attr']}|{base}"
 
     def _derive_sec_attr(self, npcols) -> np.ndarray:
         """Row-space static mapped column: S_ATTR of each row's F2 value
@@ -848,12 +860,24 @@ class FactAggregateStage:
 
     # holds-lock: self.inner._prepare_lock
     def _prepare_locked(self, partition: int, ctx) -> dict:
-        # executes the fact side's input subtree under the lock
-        # may-acquire: group:exec_substrate
-        from ballista_tpu_torch.ops.runtime import entry_device_bytes, reserve_and_pin
-
         if self.secondary is not None:
             self._ensure_sec_map(ctx)  # the derived column needs the map
+        if not ctx.config.device_cache():
+            # ballista.tpu.device_cache=false: recompute per query instead
+            # of pinning the [V, L1] tiles
+            return self._prepare_entry(partition, ctx)
+        # pinned entries count against the device budget (beyond it the
+        # partition streams per query); a fact stage whose inner layout
+        # another stage already holds binds it
+        return self.inner.bind_or_prepare(partition, ctx, self, self._prepared,
+                                          self._prepare_entry)
+
+    # holds-lock: self.inner._prepare_lock
+    def _prepare_entry(self, partition: int, ctx) -> dict:
+        # executes the fact side's input subtree under the lock
+        # may-acquire: group:exec_substrate
+        """The inner stage's sorted partition with its rank keys, which are
+        a function of the fact's key values alone."""
         with tracing.span("stage.prepare"):
             ent = self.inner._prepare_partition_sorted(partition, ctx)
         if ent["kind"] == "sorted":
@@ -870,14 +894,6 @@ class FactAggregateStage:
                 ent["rank_keys_dev"] = upload(keys64, self.inner.device)
             else:
                 ent["rank_order"] = np.argsort(kv_np, kind="stable")
-        if ctx.config.device_cache():
-            # ballista.tpu.device_cache=false: recompute per query instead
-            # of pinning the [V, L1] tiles. Pinned entries count against
-            # the device budget; beyond it the partition streams per query
-            reserve_and_pin(
-                self, partition, ent, self._prepared,
-                entry_device_bytes(ent), ctx.config.tpu_hbm_budget(),
-            )
         return ent
 
     # ------------------------------------------------------------------

@@ -200,7 +200,9 @@ _stage_latest: Dict[str, str] = {}  # guarded-by: _stage_cache_lock
 
 
 def clear_stage_cache() -> None:
+    """Drop every cached stage, its pins and the shared layouts they bind."""
     from ballista_tpu_torch.ops.runtime import release_stage_residency
+    from ballista_tpu_torch.ops.stage import clear_layouts
 
     with _stage_cache_lock:
         for stage in _stage_cache.values():
@@ -209,6 +211,7 @@ def clear_stage_cache() -> None:
         _stage_cache.clear()
         _stage_cache_pins.clear()
         _stage_latest.clear()
+    clear_layouts()
 
 
 def stage_identity(exec_node, ctx) -> dict:

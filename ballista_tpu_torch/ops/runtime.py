@@ -110,6 +110,20 @@ class ColumnDictionary:
                 return len(self.values) - 1
             return int(idx.as_py())
 
+    def adopt(self, values: pa.Array) -> bool:
+        """Take on the codes of a snapshot of a dictionary that grew from
+        the same start: the longer of the two wins when the shorter is its
+        prefix (codes mean the same strings either way); False, and nothing
+        changed, when they disagree."""
+        with self._lock:
+            cur = self.values
+            if cur is not None and len(cur) > len(values):
+                return cur.slice(0, len(values)).equals(values)
+            if cur is not None and not values.slice(0, len(cur)).equals(cur):
+                return False
+            self.values = values
+            return True
+
     def __len__(self) -> int:
         with self._lock:
             return 0 if self.values is None else len(self.values)
@@ -154,6 +168,31 @@ _EVICT_COST_RATIO = 4
 # the survivor pinned and the other streams
 _EVICT_COOLDOWN_S = 60.0
 _evicted_at: Dict[int, float] = {}  # id(stage) -> last eviction; guarded-by: _res_lock
+# a stage's partition bound to a shared entry: (id(stage), partition) -> the
+# entry's token, so the stage's touches refresh the entry's recency
+_bound: Dict[tuple, tuple] = {}  # guarded-by: _res_lock
+
+
+class SharedEntry:
+    """One prepared partition that several stages bind (ops/stage.py's
+    layout registry) and the owner of its pin: its token is (id(entry),
+    partition), and each binding stage holds `entry` in its own cache. An
+    eviction drops it from every binder; a binder's release frees it only
+    when no other stage binds it. Single use: once dropped it is never
+    pinned again. `dicts` (column index -> dictionary values) and `narrow`
+    (narrow choices) are what a binding stage adopts, since the entry's
+    codes and dtypes were staged under them."""
+
+    def __init__(self, partition: int, entry: dict, dicts: Dict[int, pa.Array],
+                 narrow: Dict) -> None:
+        self.partition = partition
+        self.entry = entry
+        self.dicts = dicts
+        self.narrow = narrow
+        self.binders: Dict[int, object] = {}  # id(stage) -> stage; guarded-by: _res_lock
+        # True from the pin until the drop (written under _res_lock; the
+        # registry reads it as a hint, bind_shared decides under the lock)
+        self.live = False
 
 
 def entry_device_bytes(obj) -> int:
@@ -189,46 +228,132 @@ def reserve_and_pin(stage, partition: int, entry, cache: dict, nbytes: int,
     fit. The retired check, the reservation and the insert happen under the
     lock release_stage_residency holds, so no reservation can outlive its
     stage."""
-    global _resident_bytes
-    token = (id(stage), partition)
     with _res_lock:
         if getattr(stage, "_retired", False):
             _residency_counts["streams"] += 1
             return False
-        if token not in _reservations:
-            if nbytes > budget:
-                # can never fit: do not disturb other pins
-                _residency_counts["streams"] += 1
-                return False
-            if _resident_bytes + nbytes > budget:
-                _evict_lru_locked(stage, nbytes, budget)
-            if _resident_bytes + nbytes > budget:
-                _residency_counts["streams"] += 1
-                return False
-            _reservations[token] = nbytes
-            _resident_bytes += nbytes
-            _pinned[token] = (stage, partition)
-            _residency_counts["pins"] += 1
-        _last_used[token] = time.monotonic()
+        if not _reserve_locked(stage, (id(stage), partition), stage, nbytes, budget):
+            return False
         cache[partition] = entry
         return True
+
+
+def pin_shared(shared: SharedEntry, nbytes: int, budget: int, stage, cache: dict) -> bool:
+    """reserve_and_pin for a shared entry: the entry owns the reservation
+    and `stage`, the first binder, gets it in `cache` (its own pins and
+    the entries it binds are never victims of the eviction this may make).
+    False, and nothing pinned, when the stage is retired or it cannot fit."""
+    with _res_lock:
+        if getattr(stage, "_retired", False):
+            _residency_counts["streams"] += 1
+            return False
+        token = (id(shared), shared.partition)
+        if not _reserve_locked(shared, token, stage, nbytes, budget):
+            return False
+        shared.live = True
+        _bind_locked(shared, token, stage, cache)
+        return True
+
+
+def bind_shared(shared: SharedEntry, stage, cache: dict) -> Optional[dict]:
+    """Bind a live shared entry into a stage's cache and refresh its
+    recency; returns the entry, or None (nothing bound) when it was dropped
+    meanwhile or the stage is retired."""
+    with _res_lock:
+        if not shared.live or getattr(stage, "_retired", False):
+            return None
+        token = (id(shared), shared.partition)
+        _last_used[token] = time.monotonic()
+        _bind_locked(shared, token, stage, cache)
+        return shared.entry
+
+
+# holds-lock: _res_lock
+def _bind_locked(shared: SharedEntry, token: tuple, stage, cache: dict) -> None:
+    shared.binders[id(stage)] = stage
+    _bound[(id(stage), shared.partition)] = token
+    cache[shared.partition] = shared.entry
+
+
+# holds-lock: _res_lock
+def _reserve_locked(owner, token: tuple, requester, nbytes: int, budget: int) -> bool:
+    """The reservation of a pin: True when `token` holds its bytes, after
+    evicting for `requester` if the budget is full; False (counted as a
+    stream) when it cannot fit."""
+    global _resident_bytes
+    if token not in _reservations:
+        if nbytes > budget:
+            # can never fit: do not disturb other pins
+            _residency_counts["streams"] += 1
+            return False
+        if _resident_bytes + nbytes > budget:
+            _evict_lru_locked(requester, nbytes, budget)
+        if _resident_bytes + nbytes > budget:
+            _residency_counts["streams"] += 1
+            return False
+        _reservations[token] = nbytes
+        _resident_bytes += nbytes
+        _pinned[token] = (owner, token[1])
+        _residency_counts["pins"] += 1
+    _last_used[token] = time.monotonic()
+    return True
+
+
+# holds-lock: _res_lock
+def _held_by_locked(owner, stage) -> bool:
+    """Whether the pin of `owner` is the stage's own: its own partition or
+    a shared entry it binds."""
+    return owner is stage or (isinstance(owner, SharedEntry) and id(stage) in owner.binders)
+
+
+# holds-lock: _res_lock
+def _immune_locked(owner) -> bool:
+    """Evicted within the cooldown: the owner, or a stage that binds it."""
+    if id(owner) in _evicted_at:
+        return True
+    return isinstance(owner, SharedEntry) and any(b in _evicted_at for b in owner.binders)
+
+
+# holds-lock: _res_lock
+def _unpin_locked(token: tuple):
+    """Take one pin out of the ledger and drop its entry from the caches
+    that hold it (a shared entry's from every binder's, and the entry is
+    dead for good); returns the owner. A task thread inside a step over the
+    entry keeps its tensors."""
+    global _resident_bytes
+    owner, p = _pinned.pop(token)
+    _last_used.pop(token, None)
+    _resident_bytes -= _reservations.pop(token, 0)
+    if isinstance(owner, SharedEntry):
+        owner.live = False
+        holders = list(owner.binders.values())
+        for b in holders:
+            _bound.pop((id(b), p), None)
+    else:
+        holders = [owner]
+    # fused stages pin into _device_cache, fact stages into _prepared
+    for h in holders:
+        for attr in ("_device_cache", "_prepared"):
+            c = getattr(h, attr, None)
+            if c is not None and (owner is h or c.get(p) is owner.entry):
+                c.pop(p, None)
+    return owner
 
 
 # holds-lock: _res_lock
 def _evict_lru_locked(requesting_stage, nbytes: int, budget: int) -> None:
     """Evict other stages' pinned partitions, oldest touch first, until
-    `nbytes` fits. The requesting stage's own entries are never victims,
-    stages evicted within _EVICT_COOLDOWN_S are immune, and the plan is
-    abandoned (nothing evicted) when it cannot fit the request or would
-    free more than _EVICT_COST_RATIO times it. Eviction drops only the cache
-    entry: a task thread inside the victim's step keeps its tensors."""
-    global _resident_bytes
+    `nbytes` fits. The requesting stage's own entries (and the shared
+    entries it binds) are never victims, stages evicted within
+    _EVICT_COOLDOWN_S are immune (with the shared entries they bind), and
+    the plan is abandoned (nothing evicted) when it cannot fit the request
+    or would free more than _EVICT_COST_RATIO times it."""
     now = time.monotonic()
     for sid in [s for s, ts in _evicted_at.items() if now - ts > _EVICT_COOLDOWN_S]:
         del _evicted_at[sid]
     candidates = sorted(
         (t for t, (s, _p) in _pinned.items()
-         if s is not requesting_stage and id(s) not in _evicted_at),
+         if not _held_by_locked(s, requesting_stage) and not _immune_locked(s)),
         key=lambda t: _last_used.get(t, 0.0),
     )
     need = _resident_bytes + nbytes - budget
@@ -244,16 +369,13 @@ def _evict_lru_locked(requesting_stage, nbytes: int, budget: int) -> None:
     if freed < need or freed > _EVICT_COST_RATIO * nbytes:
         return
     for t in chosen:
-        victim, p = _pinned.pop(t)
+        victim = _unpin_locked(t)
         _evicted_at[id(victim)] = now
-        _last_used.pop(t, None)
-        _resident_bytes -= _reservations.pop(t, 0)
+        if isinstance(victim, SharedEntry):
+            for sid in victim.binders:
+                _evicted_at[sid] = now
+            victim.binders.clear()
         _residency_counts["evictions"] += 1
-        # fused stages pin into _device_cache, fact stages into _prepared
-        for attr in ("_device_cache", "_prepared"):
-            c = getattr(victim, attr, None)
-            if c is not None:
-                c.pop(p, None)
 
 
 def make_headroom(stage, nbytes: int, budget: int) -> None:
@@ -266,38 +388,36 @@ def make_headroom(stage, nbytes: int, budget: int) -> None:
 
 
 def touch_residency(stage, partition: int) -> None:
-    """Record a cache hit for LRU ordering. Only live pins are refreshed: a
-    racing eviction may have dropped the token already."""
+    """Record a cache hit for LRU ordering (of the shared entry, where the
+    stage binds one). Only live pins are refreshed: a racing eviction may
+    have dropped the token already."""
     token = (id(stage), partition)
     with _res_lock:
+        token = _bound.get(token, token)
         if token in _pinned:
             _last_used[token] = time.monotonic()
-
-
-def release_residency(token) -> None:
-    """Drop one reservation by its (id(stage), partition) token."""
-    global _resident_bytes
-    with _res_lock:
-        _resident_bytes -= _reservations.pop(token, 0)
-        _pinned.pop(token, None)
-        _last_used.pop(token, None)
 
 
 def release_stage_residency(stage) -> None:
     """Drop a stage's cached device entries and their reservations (the
     dispatcher calls this when it permanently declines or supersedes a
-    stage). The retired flag and the sweep are one step under the lock."""
-    global _resident_bytes
+    stage). A shared entry the stage binds is freed only when no other
+    stage binds it. The retired flag and the sweep are one step under the
+    lock."""
     with _res_lock:
         stage._retired = True
         for attr in ("_device_cache", "_prepared"):
             cache = getattr(stage, attr, None)
             if cache:
                 for p in list(cache):
-                    token = (id(stage), p)
-                    _resident_bytes -= _reservations.pop(token, 0)
-                    _pinned.pop(token, None)
-                    _last_used.pop(token, None)
+                    token = _bound.pop((id(stage), p), (id(stage), p))
+                    owner = _pinned.get(token, (None,))[0]
+                    if isinstance(owner, SharedEntry):
+                        owner.binders.pop(id(stage), None)
+                        if owner.binders:
+                            continue
+                    if owner is not None:
+                        _unpin_locked(token)
                 cache.clear()
 
 
@@ -321,7 +441,11 @@ def reset_residency() -> None:
     process; the stages' cache dicts are the caller's to clear)."""
     global _resident_bytes
     with _res_lock:
+        for owner, _p in _pinned.values():
+            if isinstance(owner, SharedEntry):
+                owner.live = False
         _resident_bytes = 0
+        _bound.clear()
         _reservations.clear()
         _pinned.clear()
         _last_used.clear()

@@ -47,6 +47,15 @@ follows the JAX package: pins are LRU-evicted for other stages
 (ops/runtime.py::reserve_and_pin), and every large upload first makes
 room (make_headroom).
 
+Shared layouts: a query with fresh filter constants is a new stage (the
+stage cache keys on the plan display), but its staged partitions depend on
+the files alone, since the filters run on the device at every run. A
+partition with a layout identity (layout_identity: files, lowered columns,
+group expressions, route flags; never a predicate) binds the live entry
+another stage published for it (bind_or_prepare), adopting its dictionary
+codes and narrow choices, and prepares nothing (ingest "reused"). The
+entry owns its pin (ops/runtime.py::SharedEntry), so its bytes count once.
+
 Readback: the "batches" route reads int32 and float32 state rows back as two
 transfers per run; the "sorted" route and the top-k epilogue read one int32
 array in which float rows travel bit-cast (the JAX package split int32 rows
@@ -65,6 +74,7 @@ import pyarrow.compute as pc
 from ballista_tpu_torch.errors import DeviceError
 from ballista_tpu_torch.ops.runtime import (
     ScanDictionaries,
+    SharedEntry,
     UnsupportedOnDevice,
     bucket_rows,
     check_budget,
@@ -372,6 +382,79 @@ def _upload_staged(staged: Dict, choices: Dict, device) -> Dict:
     return cols
 
 
+# -- resident layouts shared across filter constants -----------------------
+# A partition's staged inputs (tiles, codes, key values) are a function of
+# its files and of what the stage stages from them, not of the filter
+# literals, which reach the device as aux at every run. Stages that differ
+# only in those literals (ad hoc parameters of one query template) bind one
+# prepared partition: the registry maps a partition's layout identity
+# (FusedAggregateStage.layout_identity) to the live runtime.SharedEntry that
+# owns its residency. The lock is a leaf: nothing is called under it.
+_layouts_lock = make_lock("ops.stage._layouts_lock")
+_layouts: Dict[str, SharedEntry] = {}  # guarded-by: _layouts_lock
+
+
+def _live_layout(key: str) -> Optional[SharedEntry]:
+    """The registry's live entry for a layout identity, or None."""
+    with _layouts_lock:
+        shared = _layouts.get(key)
+    return shared if shared is not None and shared.live else None
+
+
+def _publish_layout(key: str, shared: SharedEntry) -> None:
+    """Offer a pinned entry under its identity unless a live one is there,
+    and drop the entries evicted or released since."""
+    with _layouts_lock:
+        cur = _layouts.get(key)
+        if cur is None or not cur.live:
+            _layouts[key] = shared
+        for k in [k for k, s in _layouts.items() if not s.live]:
+            del _layouts[k]
+
+
+def clear_layouts() -> None:
+    """Forget every registered layout (their pins go with their binders'
+    releases, or with runtime.reset_residency)."""
+    with _layouts_lock:
+        _layouts.clear()
+
+
+def _files_identity(files) -> Optional[str]:
+    """Each file's path, mtime and size, or None when one cannot be read."""
+    import os
+
+    parts = []
+    for f in files:
+        try:
+            st = os.stat(f)
+        except OSError:
+            return None
+        parts.append(f"{f}|{st.st_mtime_ns}|{st.st_size}")
+    return "\n".join(parts)
+
+
+def plan_data_identity(node) -> Optional[str]:
+    """The data identity of a plan whose output is a function of its files
+    alone: its display (every expression and literal in it) and each leaf's
+    files. None where a leaf is not a file scan, or prunes its row groups by
+    a predicate."""
+    parts = [node.display_indent()]
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if n.children():
+            stack.extend(n.children())
+            continue
+        if (not isinstance(n, (CsvScanExec, ParquetScanExec))
+                or getattr(n, "prune_predicate", None) is not None):
+            return None
+        files = _files_identity(n.source.files)
+        if files is None:
+            return None
+        parts.append(files)
+    return "\n".join(parts)
+
+
 class FusedAggregateStage:
     """Device pipeline for one HashAggregateExec (partial phase)."""
 
@@ -474,6 +557,7 @@ class FusedAggregateStage:
         # scan column index -> "f32" | "f64" (plane columns to materialize)
         self._bit_planes: Dict[int, str] = {}
         exact_required = bool(getattr(agg, "exact_floats", False))
+        self.exact_floats = exact_required
         for a, ie in zip(self.aggs, self.agg_inputs):
             if a.fn == "count":
                 # COUNT counts NON-NULL inputs; the device mask-count would
@@ -565,6 +649,10 @@ class FusedAggregateStage:
         # array, materialized as extra [V, L1] tiles in entry["derived"].
         self.sorted_cover_max = False
         self.derive_columns: Dict[str, Callable] = {}
+        # derived column name -> fn() giving the data identity of what its
+        # map was built from (None: not a function of files alone); a
+        # derived column without one keeps the stage's partitions its own
+        self.derive_identity: Dict[str, Callable[[], Optional[str]]] = {}
         # the stage cache key (plan display + scan files + mtimes + config
         # flags), set by kernels.resolve_stage for fully file-backed stages
         # only; keys the persisted layout cache (ops/layout_cache.py)
@@ -1724,11 +1812,7 @@ class FusedAggregateStage:
             )
 
     def run(self, partition: int, ctx) -> pa.Table:
-        from ballista_tpu_torch.ops.runtime import (
-            entry_device_bytes,
-            reserve_and_pin,
-            touch_residency,
-        )
+        from ballista_tpu_torch.ops.runtime import touch_residency
 
         self.bind_device(ctx)
         use_cache = ctx.config.device_cache() and self.cacheable
@@ -1744,25 +1828,136 @@ class FusedAggregateStage:
         else:
             with self._prepare_lock:
                 prepared = self._device_cache.get(partition) if use_cache else None
-                if prepared is None:
-                    # a persisted layout first: a hit skips the whole scan
-                    # and rank pass (the batches route would decode Parquet
-                    # before it learns the cardinality it declines on)
-                    prepared = self._load_layout(partition, ctx)
-                    if prepared is None:
-                        with tracing.span("stage.prepare"):
-                            prepared = self._prepare_fresh(partition, ctx)
-                    if use_cache:
-                        # pin within the budget (a disk-loaded entry too);
-                        # past it the partition streams per query
-                        reserve_and_pin(
-                            self, partition, prepared, self._device_cache,
-                            entry_device_bytes(prepared),
-                            ctx.config.tpu_hbm_budget(),
-                        )
+                if prepared is None and use_cache:
+                    prepared = self.bind_or_prepare(partition, ctx, self, self._device_cache,
+                                                    self._prepare_stored)
+                elif prepared is None:
+                    prepared = self._prepare_stored(partition, ctx)
         if self.mapped:
             record_routing_event("mapped_rewrite")
         return self.execute_prepared(prepared, self.device)
+
+    # holds-lock: self._prepare_lock
+    def _prepare_stored(self, partition: int, ctx) -> dict:
+        """A persisted layout first: a hit skips the whole scan and rank pass
+        (the batches route would decode Parquet before it learns the
+        cardinality it declines on); else the fresh prepare."""
+        prepared = self._load_layout(partition, ctx)
+        if prepared is None:
+            with tracing.span("stage.prepare"):
+                prepared = self._prepare_fresh(partition, ctx)
+        return prepared
+
+    def layout_identity(self, partition: int, ctx) -> Optional[str]:
+        """What a partition's staged arrays are a function of, and nothing
+        else: the scan's files (paths, mtimes, sizes), the partition and its
+        stride, the lowered columns with their dtypes and bit planes, the
+        group expressions, the range-checked int sum inputs, the flags that
+        shape the route (top-k cover, cover max, the sorted kernel, the
+        skew re-plan, exact floats), the batch size and the device. Filter
+        predicates and their literals are not in it: they run on the device
+        at every run. None, and the partition stays the stage's own, where
+        the staged arrays may depend on more than the files: a row source
+        other than a file scan (memory, shuffle, a mapped scan's
+        host-filtered batches) or a derived column without an identity."""
+        if not isinstance(self.scan, (CsvScanExec, ParquetScanExec)):
+            return None
+        derived = []
+        for name in sorted(self.derive_columns):
+            ident = self.derive_identity.get(name)
+            ident = ident() if ident is not None else None
+            if ident is None:
+                return None
+            derived.append(f"{name}={ident}")
+        files = _files_identity(self.scan.source.files)
+        if files is None:
+            return None
+        src = self.scan.source
+        checked = sorted(
+            ie.index for a, ie, ix in zip(self.aggs, self.agg_inputs, self.int_exact)
+            if ix and a.fn in ("sum", "avg")
+        )
+        return "\n".join([
+            self.scan.fmt(), str(self.scan_schema).replace("\n", ";"),
+            f"csv={getattr(src, 'has_header', '')}{getattr(src, 'delimiter', '')}",
+            files, f"partition={partition}/{self.scan_stride}",
+            "cols=" + ",".join(f"{i}:{t}" for i, t in sorted(self.compiler.used_columns.items())),
+            "planes=" + ",".join(f"{i}:{w}" for i, w in sorted(self._bit_planes.items())),
+            "groups=" + ",".join(f"{e}:{e.data_type(self.scan_schema)}"
+                                 for e, _name in self.group_exprs),
+            f"checked={checked}",
+            f"topk={self.topk is not None},cover={self.sorted_cover_max},"
+            f"sk={self._sorted_kernel_eligible(ctx)},cm={ctx.config.tpu_cost_model()},"
+            f"ef={self.exact_floats},bs={ctx.batch_size},dev={self.device}",
+            *derived,
+        ])
+
+    # holds-lock: self._prepare_lock
+    def bind_or_prepare(self, partition: int, ctx, binder, cache: dict,
+                        prepare: Callable) -> dict:
+        # `prepare` executes the stage's input subtree under the lock
+        # may-acquire: group:exec_substrate
+        """A resident partition for `binder` (this stage, or the fact stage
+        around it) in `cache`. Where the partition has a layout identity
+        and the registry holds a live entry for it that this stage can
+        adopt, the binder binds it: no scan, no encode, no upload (counted
+        as ingest "reused"). Otherwise `prepare(partition, ctx)` builds it
+        and it is pinned within the budget (past it, it streams): as a new
+        shared entry the registry offers to later stages, or as the
+        binder's own where the identity is None or a live entry for it
+        could not be adopted."""
+        from ballista_tpu_torch.ops.runtime import (
+            bind_shared,
+            entry_device_bytes,
+            pin_shared,
+            reserve_and_pin,
+        )
+
+        key = self.layout_identity(partition, ctx)
+        live = None if key is None else _live_layout(key)
+        if live is not None:
+            if not self._adopt(live):
+                key = None  # its codes are not this stage's: stay private
+            else:
+                prepared = bind_shared(live, binder, cache)
+                if prepared is not None:
+                    counters.ingest.record("reused")
+                    return prepared
+        prepared = prepare(partition, ctx)
+        nbytes = entry_device_bytes(prepared)
+        budget = ctx.config.tpu_hbm_budget()
+        if key is None:
+            reserve_and_pin(binder, partition, prepared, cache, nbytes, budget)
+            return prepared
+        dicts = {i: v for i, d in self.dicts.dicts.items() if (v := d.snapshot()) is not None}
+        shared = SharedEntry(partition, prepared, dicts, dict(self._narrow_choice))
+        if pin_shared(shared, nbytes, budget, binder, cache):
+            _publish_layout(key, shared)
+        return prepared
+
+    # holds-lock: self._prepare_lock
+    def _adopt(self, shared: SharedEntry) -> bool:
+        """Take on a shared entry's dictionaries and narrow choices, so this
+        stage's string literals resolve against the codes its tiles hold
+        (a literal the data lacks gets a code past them and matches no
+        row). False where they disagree with what this stage already
+        staged or resolved; the dictionaries may then have grown by a
+        consistent prefix, which changes no code."""
+        order = {"int8": 0, "int16": 1, "int32": 2}
+        narrow = dict(self._narrow_choice)
+        for k, choice in shared.narrow.items():
+            cur = narrow.get(k)
+            if cur is None or choice is None or cur == choice:
+                narrow[k] = cur if choice is None else choice
+            elif cur in order and choice in order:
+                narrow[k] = max(cur, choice, key=order.get)
+            else:
+                return False
+        for idx, values in shared.dicts.items():
+            if not self.dicts.for_column(idx).adopt(values):
+                return False
+        self._narrow_choice.update(narrow)
+        return True
 
     # holds-lock: self._prepare_lock
     def _prepare_fresh(self, partition: int, ctx) -> dict:

@@ -113,9 +113,11 @@ serving = Counts()
 delta = Counts()
 # ingest timings across stage prepares: scan_s = prefetch work (parquet
 # read + dictionary decode + group ranking), encode_s = host narrow/encode,
-# upload_s = h2d enqueue, wall_s = end-to-end prepare
+# upload_s = h2d enqueue, wall_s = end-to-end prepare; reused = partitions
+# a stage bound from another stage's resident layout instead of preparing
+# (ops/stage.py::bind_or_prepare: no prepare, no wall time)
 ingest = Counts(zero={"scan_s": 0.0, "encode_s": 0.0, "upload_s": 0.0,
-                      "wall_s": 0.0, "prepares": 0})
+                      "wall_s": 0.0, "prepares": 0, "reused": 0})
 # device->host result readbacks (ops/runtime.py::readback): rows =
 # trailing-axis length of each fetched result, bytes = transfer size,
 # readbacks = transfer count; a readback tagged with a site also counts as

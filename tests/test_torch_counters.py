@@ -166,7 +166,7 @@ def test_runtime_reexports_each_sets_reader(name):
 def test_ingest_reports_its_zero_totals():
     runtime.ingest_stats(reset=True)
     assert runtime.ingest_stats() == {"scan_s": 0.0, "encode_s": 0.0, "upload_s": 0.0,
-                                      "wall_s": 0.0, "prepares": 0}
+                                      "wall_s": 0.0, "prepares": 0, "reused": 0}
 
 
 def test_tracing_counters_are_the_named_set():
